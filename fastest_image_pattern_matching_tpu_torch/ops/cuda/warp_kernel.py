@@ -1,0 +1,83 @@
+"""Wrapper of the hand-written CUDA warp kernel (csrc/warp_affine.cu).
+
+Replaces fastest_image_pattern_matching_tpu/ops/pallas/warp_kernel.py::
+warp_affine_pallas. The kernel is one thread per output pixel with four
+bounds-checked taps; it is bound by memory and L2 (about 16 B read, mostly
+cache hits, and 4 B written per output pixel). Its plain PyTorch version is
+ops/warp.py::warp_affine_batch; ops/warp.py::warp_affine_dispatch sends CPU
+tensors there and CUDA tensors here.
+
+The library is built with nvcc at the first launch, never on import.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Tuple
+
+import torch
+
+from . import build
+
+SOURCE = "warp_affine.cu"
+
+# Launches of the CUDA kernel in this process; the plain path on the CPU
+# does not count.
+LAUNCHES = 0
+
+_LIB = None
+
+
+def _lib() -> ctypes.CDLL:
+    global _LIB
+    if _LIB is None:
+        lib = build.load(SOURCE)
+        lib.fipm_warp_affine.argtypes = [
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+            ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        lib.fipm_warp_affine.restype = ctypes.c_int
+        lib.fipm_error_string.argtypes = [ctypes.c_int]
+        lib.fipm_error_string.restype = ctypes.c_char_p
+        _LIB = lib
+    return _LIB
+
+
+def warp_affine_cuda(src: torch.Tensor, inv_mats: torch.Tensor,
+                     out_hw: Tuple[int, int], border_value: float,
+                     quantize: bool = True) -> torch.Tensor:
+    """Launch the CUDA kernel on the current stream; raises on anything the
+    kernel does not take."""
+    global LAUNCHES
+    if not (src.is_cuda and inv_mats.is_cuda and src.device == inv_mats.device):
+        raise ValueError(f"warp_affine_cuda needs both tensors on one CUDA "
+                         f"device, got {src.device} and {inv_mats.device}")
+    if src.dtype != torch.float32 or inv_mats.dtype != torch.float32:
+        raise TypeError(f"warp_affine_cuda takes float32, got {src.dtype} "
+                        f"and {inv_mats.dtype}")
+    if src.ndim != 2 or inv_mats.ndim != 3 or inv_mats.shape[1:] != (2, 3):
+        raise ValueError(f"bad shapes src {tuple(src.shape)}, inv_mats "
+                         f"{tuple(inv_mats.shape)}")
+    if not (src.is_contiguous() and inv_mats.is_contiguous()):
+        raise ValueError("warp_affine_cuda takes contiguous tensors")
+    H, W = src.shape
+    Ho, Wo = (int(v) for v in out_hw)
+    B = inv_mats.shape[0]
+    if not (B <= 65535 and (Ho + 7) // 8 <= 65535
+            and max(H * W, B * Ho * Wo) < 2**31):
+        raise ValueError(f"warp of {B}x{Ho}x{Wo} from {H}x{W} exceeds the "
+                         "kernel's grid or index range")
+    out = torch.empty((B, Ho, Wo), dtype=torch.float32, device=src.device)
+    if out.numel() == 0:
+        return out
+    lib = _lib()
+    with torch.cuda.device(src.device):
+        stream = torch.cuda.current_stream(src.device).cuda_stream
+        err = lib.fipm_warp_affine(
+            src.data_ptr(), H, W, inv_mats.data_ptr(), B, out.data_ptr(),
+            Ho, Wo, float(border_value), int(bool(quantize)), stream)
+    if err != 0:
+        raise RuntimeError("warp_affine kernel launch failed: "
+                           + lib.fipm_error_string(err).decode())
+    LAUNCHES += 1
+    return out

@@ -1,0 +1,146 @@
+"""The port's kernel modules and import rules.
+
+On the CPU: the kernel module imports without nvcc, CPU tensors take the
+plain version, and no port source imports JAX, cv2 or the JAX package.
+Tests marked `cuda` compare the hand-written kernel with its plain version
+on the card and skip without one.
+"""
+
+import ast
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from fastest_image_pattern_matching_tpu_torch.ops import ncc as tncc
+from fastest_image_pattern_matching_tpu_torch.ops import warp as twarp
+from fastest_image_pattern_matching_tpu_torch.ops.cuda import warp_kernel
+from fastest_image_pattern_matching_tpu_torch.utils import device as tdevice
+from fastest_image_pattern_matching_tpu_torch.utils import geometry
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT = os.path.join(REPO, "fastest_image_pattern_matching_tpu_torch")
+FORBIDDEN = ("jax", "jaxlib", "cv2", "fastest_image_pattern_matching_tpu")
+
+
+def _port_sources():
+    out = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, files in os.walk(PORT):
+        out += [os.path.join(root, f) for f in files if f.endswith(".py")]
+    return out
+
+
+def test_port_imports_no_jax_cv2_or_jax_package():
+    """Parse every port source: no import of jax, cv2 or the JAX
+    package, at any depth of the module."""
+    srcs = _port_sources()
+    assert len(srcs) > 10
+    for path in srcs:
+        tree = ast.parse(open(path).read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            for n in names:
+                assert n.split(".")[0] not in FORBIDDEN, (path, n)
+
+
+def _maps(src_hw, angles, shift):
+    h, w = src_hw
+    mats = []
+    for a in angles:
+        m = geometry.rotation_matrix(((w - 1) / 2.0, (h - 1) / 2.0), a)
+        m[0, 2] += shift[0]
+        m[1, 2] += shift[1]
+        mats.append(geometry.invert_affine(m))
+    return torch.as_tensor(np.asarray(mats, np.float32))
+
+
+def test_kernel_module_imports_without_nvcc_and_cpu_takes_plain():
+    """Importing, in a fresh process with no nvcc reachable, builds and
+    loads nothing; CPU tensors take the plain version and launch no
+    kernel."""
+    env = dict(os.environ, PATH=os.path.dirname(sys.executable),
+               CUDA_HOME="/nonexistent", CUDA_PATH="/nonexistent")
+    code = ("import fastest_image_pattern_matching_tpu_torch.ops.cuda."
+            "warp_kernel as w; assert w._LIB is None and w.LAUNCHES == 0")
+    subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                   check=True, timeout=120)
+    src = torch.as_tensor(np.random.default_rng(2).integers(
+        0, 256, (60, 80)).astype(np.float32))
+    maps = _maps(src.shape, [0.0, 33.0, -120.0], (3.5, -2.0))
+    before = warp_kernel.LAUNCHES
+    got = twarp.warp_affine_dispatch(src, maps, (30, 41), 17.0)
+    want = twarp.warp_affine_batch(src, maps, (30, 41), 17.0, quantize=True)
+    assert torch.equal(got, want)
+    assert warp_kernel.LAUNCHES == before
+
+
+def test_kernel_wrapper_rejects_cpu_tensors():
+    """The CUDA entry point raises instead of falling back to the plain
+    version."""
+    src = torch.zeros((8, 8))
+    with pytest.raises(ValueError):
+        warp_kernel.warp_affine_cuda(src, _maps((8, 8), [0.0], (0, 0)),
+                                     (4, 4), 0.0)
+
+
+def test_cuda_device_without_card_raises(monkeypatch):
+    """Asking for CUDA without a card raises; nothing falls back to the
+    CPU unasked."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError):
+        tdevice.resolve_device(None)
+    with pytest.raises(RuntimeError):
+        tdevice.resolve_device("cuda")
+    assert tdevice.resolve_device("cpu") == torch.device("cpu")
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda", 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_hw,B,border", [((68, 70), 41, 255.0),
+                                             ((23, 30), 24, 0.0),
+                                             ((527, 768), 6, 0.0)])
+def test_warp_kernel_matches_plain_on_card(cuda_device, out_hw, B, border):
+    """Kernel vs plain version on the card: quantized output bit-equal,
+    unquantized atol 5e-3 (the same f32 ops in the same order; the plain
+    version's f64-evaluated FMAs can differ by a double rounding, about
+    2^-29 of operations)."""
+    rng = np.random.default_rng(4)
+    src = torch.as_tensor(rng.integers(0, 256, (759, 1006)).astype(
+        np.float32), device=cuda_device)
+    maps = _maps(src.shape, rng.uniform(-180, 180, B),
+                 (rng.uniform(-200, 200), rng.uniform(-200, 200)))
+    maps = maps.to(cuda_device)
+    before = warp_kernel.LAUNCHES
+    for q in (True, False):
+        got = twarp.warp_affine_dispatch(src, maps, out_hw, border, q)
+        want = twarp.warp_affine_batch(src, maps, out_hw, border, quantize=q)
+        torch.cuda.synchronize()
+        if q:
+            assert torch.equal(got, want)
+        else:
+            torch.testing.assert_close(got, want, atol=5e-3, rtol=0)
+    assert warp_kernel.LAUNCHES == before + 2
+
+
+@pytest.mark.cuda
+def test_tiledband_regime_raises_on_card(cuda_device):
+    """Where the JAX package would take its tiled-band kernel, the card
+    raises until that kernel is ported."""
+    canv = torch.zeros((1, 300, 300), device=cuda_device)
+    with pytest.raises(NotImplementedError):
+        tncc.ncc_score_map(canv, torch.ones((5, 6), device=cuda_device),
+                           1.0, 1.0, 1 / 30.0, False)
