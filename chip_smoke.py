@@ -5,18 +5,36 @@
 
 Phases, each of which fails the run (non-zero exit) when it fails:
   1. device: the card's name and power limit; CUDA is required.
-  2. build: compiles the hand-written CUDA warp kernel from the sources in
-     this checkout (nvcc, sm_90a).
-  3. kernel against its plain PyTorch version on the card, at the shapes of
-     the flagship's main path, plus the pyramid on the card against the CPU.
+  2. build: compiles both hand-written CUDA kernels (warp, correlation)
+     from the sources in this checkout (nvcc, sm_90a), one nvcc each, in
+     parallel.
+  3. warp kernel against its plain PyTorch version on the card, at the
+     shapes of the flagship's main path, plus the pyramid on the card
+     against the CPU; times of kernel, plain version and F.grid_sample.
   4. the flagship (4024x3036 source, 762x521 template, tolerance 180 deg,
      three planted targets) through learn_pattern + match on the card,
-     which must find the three targets and launch the kernel; wall time and
-     per-stage times.
+     which must find the three targets and launch the warp kernel; wall
+     time, per-stage times and a torch.profiler pass (device busy share,
+     device events and host syncs per match, largest device consumers).
   5. the port on the card against the port on the CPU on a 500x600
      three-target scene.
-The last two lines of output are the kernels' JSON summary and
-{"ok": true, "device": {...}}. Imports nothing of JAX.
+  6. correlation kernel against its plain version on the card (bit-equal
+     on integer inputs): Test7's top layer (1824x1824 x 27x27), 8 rotated
+     canvases, the template-size corners, a ragged output, and fractional
+     inputs within the kernel's rounding bound; times of kernel, plain
+     version and F.conv2d at Test7's shape.
+  7. Test7's many-target scene (3648x3648 source, 100 planted 54x54
+     washers, tol 0) through learn_pattern + match on the card, which must
+     find all 100 and launch the correlation kernel; wall time, per-stage
+     times, a profiler pass as in phase 4, and the sweep's split into score
+     map and peaks.
+  8. match_template on the card against the port on the CPU; times of the
+     conv and fft routes on each side of the "auto" rule's crossover.
+  9. the port on the card against the CPU on a 720x720 many-target scene,
+     at tolerance 0 and 30 deg.
+The last three lines of output are the kernels' JSON summary, the card's
+name and power limit, and {"ok": true, "device": {...}}. Imports nothing
+of JAX.
 """
 
 import json
@@ -153,6 +171,120 @@ def small_scene():
     return scene, t, truth
 
 
+def washer_template(rng, size=54):
+    """A size x size ring washer on a bright background, the look of the
+    reference's Dst10 (round washers on white): dark annulus, bright hole,
+    a notch in the ring and pixel noise."""
+    c = (size - 1) / 2.0
+    yy, xx = np.mgrid[:size, :size]
+    r = np.hypot(xx - c, yy - c)
+    t = np.full((size, size), 225.0)
+    t[(r >= 0.22 * size) & (r <= 0.46 * size)] = 70.0
+    t[(np.abs(yy - c) < 0.05 * size) & (xx > c)
+      & (r >= 0.22 * size) & (r <= 0.46 * size)] = 150.0
+    t -= rng.integers(0, 20, t.shape)
+    return np.clip(t, 0, 255).astype(np.uint8)
+
+
+def many_target_scene(size, n, seed=7):
+    """The tol=0 many-target scene of tools/suite_bench.py::
+    _synthetic_src10 at any size: a size x size source of 235 minus noise
+    in [0, 12) and n non-overlapping washer copies at least 6 px apart.
+    Returns (scene, template, planted centres [(cx, cy)]) in the matcher's
+    centre convention (top-left + (w/2, h/2))."""
+    rng = np.random.default_rng(seed)
+    t = washer_template(rng)
+    scene = (np.full((size, size), 235, np.uint8)
+             - rng.integers(0, 12, (size, size), dtype=np.uint8))
+    th, tw = t.shape
+    placed = []
+    attempts = 0
+    while len(placed) < n and attempts < 10000:
+        attempts += 1
+        y = int(rng.integers(40, size - th - 40))
+        x = int(rng.integers(40, size - tw - 40))
+        if any(abs(y - py) < th + 6 and abs(x - px) < tw + 6
+               for py, px in placed):
+            continue
+        scene[y:y + th, x:x + tw] = t
+        placed.append((y, x))
+    if len(placed) != n:
+        raise ValueError(f"placed {len(placed)} of {n} targets")
+    return scene, t, [(x + tw / 2.0, y + th / 2.0) for y, x in placed]
+
+
+def many_target_config(fipm, max_pos, tolerance_angle=0.0):
+    """Test7's configuration (tools/suite_bench.py:101-105)."""
+    return fipm.MatchConfig(max_pos=max_pos, score=0.5,
+                            tolerance_angle=tolerance_angle, max_overlap=0.5,
+                            min_reduce_area=1024)
+
+
+# ---------------------------------------------------------------- bounds
+
+# One H100 SXM (NVIDIA's data sheet, dense rates): device memory 3.35 TB/s,
+# int8 tensor cores 1,979 TOP/s, f32 outside the tensor cores 67 TFLOP/s.
+HBM_BYTES_PER_S = 3.35e12
+INT8_OPS_PER_S = 1979e12
+F32_OPS_PER_S = 67e12
+# f32 operations per warped pixel: two coordinates (fma, mul, add each),
+# two floors and two fractions, two complements, four weights, the
+# four-term blend and the rounding.
+WARP_OPS_PER_PIXEL = 21
+
+
+def bound_ms(n_bytes, n_ops, ops_per_s):
+    """The least time the card could take: the larger of the bytes over
+    the memory rate and the operations over the peak rate of their type.
+    Returns (ms, "bytes" or "operations")."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / ops_per_s * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def warp_source_pixels(src_hw, maps, out_hw):
+    """Distinct source pixels that the bilinear taps of these maps read:
+    what the warp must move from its input, for this run's maps."""
+    import torch
+    H, W = src_hw
+    Ho, Wo = out_hw
+    dev = maps.device
+    y = torch.arange(Ho, device=dev, dtype=torch.float64)[:, None]
+    x = torch.arange(Wo, device=dev, dtype=torch.float64)[None, :]
+    seen = torch.zeros(H * W, dtype=torch.bool, device=dev)
+    for m in maps.double():
+        x0 = torch.floor(m[0, 0] * x + m[0, 1] * y + m[0, 2]).long()
+        y0 = torch.floor(m[1, 0] * x + m[1, 1] * y + m[1, 2]).long()
+        for dy in (0, 1):
+            for dx in (0, 1):
+                yy, xx = y0 + dy, x0 + dx
+                ok = (yy >= 0) & (yy < H) & (xx >= 0) & (xx < W)
+                seen[(yy * W + xx)[ok]] = True
+    return int(seen.sum())
+
+
+def warp_bound(src, maps, out_hw):
+    B = maps.shape[0]
+    n_out = B * out_hw[0] * out_hw[1]
+    n_bytes = 4 * (warp_source_pixels(src.shape, maps, out_hw) + n_out
+                   + 6 * B)
+    return bound_ms(n_bytes, WARP_OPS_PER_PIXEL * n_out, F32_OPS_PER_S)
+
+
+def corr_bound(canv, templ):
+    """Each input read once, the map written once; the multiply-adds at the
+    int8 tensor-core rate when both inputs are int8-valued (the centred
+    u8 values of the main path), else at the f32 rate."""
+    B, H, W = canv.shape
+    h, w = templ.shape
+    Ho, Wo = H - h + 1, W - w + 1
+    n_bytes = 4 * (B * H * W + h * w + B * Ho * Wo)
+    int8 = all(bool((t == t.round()).all()) and float(t.min()) >= -128
+               and float(t.max()) <= 127 for t in (canv, templ))
+    return bound_ms(n_bytes, 2 * B * Ho * Wo * h * w,
+                    INT8_OPS_PER_S if int8 else F32_OPS_PER_S)
+
+
 # ---------------------------------------------------------------- timing
 
 def cuda_ms(fn, iters):
@@ -167,6 +299,15 @@ def cuda_ms(fn, iters):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def turns_ms(kernel, plain, iters_kernel, iters_plain):
+    """Kernel and plain version timed in turns (plain, kernel, kernel,
+    plain) within one call, on one card: (kernel ms, plain ms)."""
+    pm = [cuda_ms(plain, iters_plain)]
+    km = [cuda_ms(kernel, iters_kernel), cuda_ms(kernel, iters_kernel)]
+    pm.append(cuda_ms(plain, iters_plain))
+    return statistics.mean(km), statistics.mean(pm)
 
 
 def check_quantized(got, ref, ref_unq, tag):
@@ -186,6 +327,51 @@ def check_quantized(got, ref, ref_unq, tag):
     return n_bad, max_d
 
 
+def check_corr(got, want, canv, templ, tag):
+    """The correlation kernel's contract against its plain version: bit-
+    equal on integer inputs; on fractional inputs within (w + 1) * 2^-24 *
+    sum |S||T| over the window plus one f32 ulp of the result, elementwise
+    (the kernel's f32 row sums round at most w times). Returns max |d|."""
+    from fastest_image_pattern_matching_tpu_torch.ops.ncc import (
+        ccorr_tiled_ref)
+    d = (got.double() - want.double()).abs()
+    if bool((canv == canv.round()).all()):
+        if not bool((d == 0).all()):
+            raise AssertionError(f"{tag}: {int((d != 0).sum())} outputs "
+                                 f"differ on integer inputs")
+    else:
+        w = templ.shape[1]
+        bound = ((w + 1) * 2.0**-24
+                 * ccorr_tiled_ref(canv.abs(), templ.abs()).double()
+                 + 2.0**-23 * want.double().abs())
+        if not bool((d <= bound).all()):
+            raise AssertionError(f"{tag}: max |d| {float(d.max())} beyond "
+                                 "the rounding bound")
+    return float(d.max())
+
+
+def grid_sample_call(src, maps, out_hw, border):
+    """The library yardstick of the warp: one F.grid_sample call computing
+    the same bilinear BORDER_CONSTANT sample (zero padding of src - border,
+    plus border). Its sampling grid is made here, outside the timed call."""
+    import torch
+    import torch.nn.functional as F
+    B = maps.shape[0]
+    H, W = src.shape
+    Ho, Wo = out_hw
+    dev = src.device
+    y = torch.arange(Ho, device=dev, dtype=torch.float32)[:, None]
+    x = torch.arange(Wo, device=dev, dtype=torch.float32)[None, :]
+    m = maps[:, :, :, None, None]
+    fx = m[:, 0, 0] * x + m[:, 0, 1] * y + m[:, 0, 2]
+    fy = m[:, 1, 0] * x + m[:, 1, 1] * y + m[:, 1, 2]
+    grid = torch.stack([fx * (2.0 / (W - 1)) - 1.0,
+                        fy * (2.0 / (H - 1)) - 1.0], dim=-1)
+    inp = (src - border)[None, None].expand(B, 1, H, W)
+    return lambda: F.grid_sample(inp, grid, mode="bilinear",
+                                 padding_mode="zeros", align_corners=True)
+
+
 # ---------------------------------------------------------------- phases
 
 def main() -> int:
@@ -196,15 +382,8 @@ def main() -> int:
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import fastest_image_pattern_matching_tpu_torch as fipm
-    from fastest_image_pattern_matching_tpu_torch.models import (
-        template_matcher as tm)
-    from fastest_image_pattern_matching_tpu_torch.ops import warp as W
-    from fastest_image_pattern_matching_tpu_torch.ops.rounding import f32
     from fastest_image_pattern_matching_tpu_torch.ops.cuda import (
-        build, warp_kernel)
-    from fastest_image_pattern_matching_tpu_torch.ops.pyramid import (
-        build_pyramid)
-    from fastest_image_pattern_matching_tpu_torch.utils import geometry
+        build, corr_kernel, warp_kernel)
 
     dev = torch.device("cuda", 0)
     # Phase 1: device.
@@ -212,15 +391,42 @@ def main() -> int:
     log(f"[1 device] {smi} | torch {torch.__version__} cuda "
         f"{torch.version.cuda} | {torch.cuda.get_device_name(0)}")
 
-    # Phase 2: build.
+    # Phase 2: build every kernel, one nvcc each, all started together.
     t0 = time.perf_counter()
-    path, nvcc_s, report = build.build(warp_kernel.SOURCE)
+    built = build.build_all([warp_kernel.SOURCE, corr_kernel.SOURCE])
     warp_kernel._lib()
-    log(f"[2 build] {os.path.relpath(path)} nvcc {nvcc_s:.2f} s, load "
+    corr_kernel._lib()
+    log(f"[2 build] both kernels built and loaded in "
         f"{time.perf_counter() - t0:.2f} s")
-    for line in report.splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"[2 build] ptxas: {line.strip()}")
+    for path, nvcc_s, report in built:
+        log(f"[2 build] {os.path.relpath(path)} nvcc {nvcc_s:.2f} s")
+        for line in report.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"[2 build] ptxas: {line.strip()}")
+
+    warp = flagship_phases(fipm, warp_kernel, dev, smi)
+    corr = many_target_phases(fipm, corr_kernel, warp_kernel, dev, smi)
+
+    print(json.dumps({"kernels": [warp, corr]}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+def flagship_phases(fipm, warp_kernel, dev, smi):
+    """Phases 3-5: the warp kernel against its plain version, the flagship
+    end to end, the port on the card against the CPU. Returns the warp
+    kernel's entry of the kernels line."""
+    import torch
+    from fastest_image_pattern_matching_tpu_torch.models import (
+        template_matcher as tm)
+    from fastest_image_pattern_matching_tpu_torch.ops import warp as W
+    from fastest_image_pattern_matching_tpu_torch.ops.pyramid import (
+        build_pyramid)
+    from fastest_image_pattern_matching_tpu_torch.ops.rounding import f32
+    from fastest_image_pattern_matching_tpu_torch.utils import geometry
 
     # Phase 3: kernel against plain version at the main path's shapes.
     scene, templ, truth = flagship_scene()
@@ -234,7 +440,7 @@ def main() -> int:
     for lv, (a, b) in enumerate(zip(pyr, pyr_cpu)):
         if not torch.equal(a.cpu(), b):
             raise AssertionError(f"pyramid level {lv} differs card vs CPU")
-    log(f"[3 kernel] pyramid card == CPU bit-equal, {plan.top + 1} levels")
+    log(f"[3 warp] pyramid card == CPU bit-equal, {plan.top + 1} levels")
     inv_sweep = torch.as_tensor(tm._top_sweep_arrays(plan)[0], device=dev)
     rng = np.random.default_rng(3)
 
@@ -278,7 +484,7 @@ def main() -> int:
         if du > 5e-3:
             raise AssertionError(f"{name}: unquantized max |d| {du}")
         max_err = max(max_err, d, du)
-        log(f"[3 kernel] {name}: {tuple(maps.shape)} -> {tuple(got.shape)} "
+        log(f"[3 warp] {name}: {tuple(maps.shape)} -> {tuple(got.shape)} "
             f"from {tuple(src.shape)}; quantized mismatches {n_bad}, max "
             f"|d| {d} (allowed: |d| <= 1 on < 1e-3 of pixels, at .5 "
             f"boundaries only); unquantized max |d| {du} (atol 5e-3)")
@@ -290,15 +496,20 @@ def main() -> int:
     times = {}
     for name, iters in (("sweep", 200), ("L0", 20)):
         src, maps, hw, border = shapes[name]
-        k = lambda: warp_kernel.warp_affine_cuda(src, maps, hw, border, True)
-        p = lambda: W.warp_affine_batch(src, maps, hw, border, quantize=True)
-        # plain, kernel, kernel, plain — within one call, on one card.
-        pm = [cuda_ms(p, iters)]
-        km = [cuda_ms(k, iters), cuda_ms(k, iters)]
-        pm.append(cuda_ms(p, iters))
-        times[name] = (statistics.mean(km), statistics.mean(pm))
-        log(f"[3 kernel] time {name}: kernel {times[name][0]:.4f} ms, plain "
-            f"{times[name][1]:.4f} ms ({smi})")
+        km, pm = turns_ms(
+            lambda: warp_kernel.warp_affine_cuda(src, maps, hw, border, True),
+            lambda: W.warp_affine_batch(src, maps, hw, border, quantize=True),
+            iters, iters)
+        lib = grid_sample_call(src, maps, hw, border)
+        lib_d = float((lib()[:, 0] + border - W.warp_affine_batch(
+            src, maps, hw, border, quantize=False)).abs().max())
+        lm = cuda_ms(lib, iters)
+        bms, by = warp_bound(src, maps, hw)
+        times[name] = (km, pm, lm, bms, by)
+        log(f"[3 warp] time {name}: kernel {km:.4f} ms, plain {pm:.4f} ms, "
+            f"F.grid_sample {lm:.4f} ms (its max |d| from the plain "
+            f"unquantized warp {lib_d:.3g}); bound {bms:.4f} ms by {by} "
+            f"({smi})")
 
     # Phase 4: the flagship end to end, through the user entry points.
     warp_kernel.LAUNCHES = 0
@@ -322,18 +533,9 @@ def main() -> int:
             f"{dist:.3f} px, angle off {err_a:.3f} deg, score {r.score:.4f}")
         if r.score < 0.9 or dist > 2.0 or abs(err_a) > 0.5:
             raise AssertionError("flagship target not recovered")
-
-    walls = []
-    for _ in range(5):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fipm.match(scene, pattern, cfg, device=dev)
-        torch.cuda.synchronize()
-        walls.append((time.perf_counter() - t0) * 1e3)
-    log(f"[4 flagship] wall ms (host array in, 5 runs after warm-up): "
-        f"median {statistics.median(walls):.2f}, all "
-        f"{[round(w, 2) for w in walls]} ({smi})")
-
+    run = lambda: fipm.match(scene, pattern, cfg, device=dev)
+    log_walls("[4 flagship]", run, smi)
+    profile_match("[4 flagship]", run, smi)
     stage_ms = stage_times(tm, build_pyramid, scene, pattern, cfg, dev)
     log("[4 flagship] stages ms: " + ", ".join(
         f"{k} {v:.3f}" for k, v in stage_ms.items()) + f" ({smi})")
@@ -343,20 +545,10 @@ def main() -> int:
     s_cfg = fipm.MatchConfig(max_pos=3, score=0.5, tolerance_angle=180.0,
                              min_reduce_area=256, max_overlap=0.1)
     s_pat = fipm.learn_pattern(s_templ, 256, device="cpu")
-    on_card = tm.match_arrays(s_scene, s_pat, s_cfg, device=dev)
-    on_cpu = tm.match_arrays(s_scene, s_pat, s_cfg, device="cpu")
-    nv = int(on_cpu["valid"].sum())
-    if not np.array_equal(on_card["valid"], on_cpu["valid"]) or nv != 3:
-        raise AssertionError(f"valid masks differ or != 3 targets: "
-                             f"{on_card['valid']} vs {on_cpu['valid']}")
-    diffs = {k: float(np.abs(on_card[k][:nv] - on_cpu[k][:nv]).max())
-             for k in ("score", "center", "angle")}
-    log(f"[5 card vs cpu] {nv} targets; max |d| {diffs}")
-    if diffs["score"] > 1e-4 or diffs["center"] > 1e-3 \
-            or diffs["angle"] > 1e-3:
-        raise AssertionError("port on the card disagrees with the CPU")
+    card_vs_cpu("[5 card vs cpu]", tm, s_scene, s_pat, s_cfg, dev, 3, 1e-4)
 
-    kernels = {"kernels": [{
+    km, pm, lm, bms, by = times["L0"]
+    return {
         "name": "warp_affine",
         "route": "cuda",
         "source": "fastest_image_pattern_matching_tpu_torch/csrc/"
@@ -365,20 +557,293 @@ def main() -> int:
                     "warp_kernel.py:86",
         "launches": launches,
         "max_abs_err": max_err,
-        "ms": times["L0"][0],
-        "plain_ms": times["L0"][1],
-    }]}
-    print(json.dumps(kernels))
-    print(smi)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}), flush=True)
-    return 0
+        "ms": km,
+        "plain_ms": pm,
+        "bound_ms": bms,
+        "bound_by": by,
+        "library_ms": lm,
+    }
+
+
+def many_target_phases(fipm, corr_kernel, warp_kernel, dev, smi):
+    """Phases 6-9: the correlation kernel against its plain version, the
+    Test7 many-target scene end to end, match_template on the card against
+    the CPU, and a small many-target scene on the card against the CPU.
+    Returns the correlation kernel's entry of the kernels line."""
+    import torch
+    import torch.nn.functional as F
+    from fastest_image_pattern_matching_tpu_torch.models import (
+        template_matcher as tm)
+    from fastest_image_pattern_matching_tpu_torch.ops import ncc
+    from fastest_image_pattern_matching_tpu_torch.ops import warp as W
+    from fastest_image_pattern_matching_tpu_torch.ops.peaks import (
+        extract_peaks)
+    from fastest_image_pattern_matching_tpu_torch.ops.pyramid import (
+        build_pyramid)
+
+    # Phase 6: kernel against plain version. The Test7 top layer is the
+    # main path's own input: the pyramid of the 3648x3648 scene.
+    scene, templ, truth = many_target_scene(3648, 100)
+    cfg = many_target_config(fipm, 100)
+    pattern = fipm.learn_pattern(templ, cfg.min_reduce_area, device=dev)
+    plan = tm._make_plan(scene.shape, pattern, cfg)
+    top = plan.top
+    log(f"[6 corr] Test7 plan: top layer {top}, canvas {plan.canvas_hw}, "
+        f"template {plan.templ_shapes[top]}, {len(plan.angles)} angle, "
+        f"K {plan.k_peaks}")
+    pyr = build_pyramid(torch.as_tensor(scene.astype(np.float32),
+                                        device=dev), top)
+    t7_canv = (pyr[top] - 128.0)[None].contiguous()
+    t7_templ = torch.as_tensor(pattern.levels[top].templ, device=dev) - 128.0
+
+    s_scene, s_templ, s_truth = many_target_scene(720, 20)
+    r_cfg = many_target_config(fipm, 20, 30.0)
+    s_pat = fipm.learn_pattern(s_templ, 1024, device="cpu")
+    r_plan = tm._make_plan(s_scene.shape, s_pat, r_cfg)
+    r_top = r_plan.top
+    r_pyr = build_pyramid(torch.as_tensor(s_scene.astype(np.float32),
+                                          device=dev), r_top)
+    r_maps = torch.as_tensor(tm._top_sweep_arrays(r_plan)[0][:8], device=dev)
+    r_templ = torch.as_tensor(s_pat.levels[r_top].templ, device=dev) - 128.0
+    rotated = {q: W.warp_affine_batch(r_pyr[r_top], r_maps, r_plan.canvas_hw,
+                                      float(r_plan.border_color),
+                                      quantize=q) - 128.0
+               for q in (True, False)}
+
+    rng = np.random.default_rng(11)
+
+    def ints(shape):
+        return torch.as_tensor(rng.integers(-128, 128, shape).astype(
+            np.float32), device=dev)
+
+    cases = [("Test7 top layer", t7_canv, t7_templ),
+             ("Test7 top layer, fractional", t7_canv + torch.as_tensor(
+                 rng.uniform(-0.5, 0.5, t7_canv.shape).astype(np.float32),
+                 device=dev), t7_templ),
+             ("8 rotated canvases, quantized", rotated[True], r_templ),
+             ("8 rotated canvases, unquantized", rotated[False], r_templ),
+             ("h=64 w=129", ints((1, 300, 500)), ints((64, 129))),
+             ("w=2", ints((3, 70, 1000)), ints((13, 2))),
+             ("h=1", ints((2, 97, 131)), ints((1, 9))),
+             ("ragged 307x529 output", ints((2, 333, 555)), ints((27, 27)))]
+    max_err = 0.0
+    for tag, canv, tc in cases:
+        got = corr_kernel.ccorr_valid_cuda(canv, tc)
+        want = ncc.ccorr_tiled_ref(canv, tc)
+        torch.cuda.synchronize()
+        d = check_corr(got, want, canv, tc, tag)
+        max_err = max(max_err, d)
+        exact = bool((canv == canv.round()).all())
+        log(f"[6 corr] {tag}: {tuple(canv.shape)} x {tuple(tc.shape)} -> "
+            f"{tuple(got.shape)}; max |d| {d} ("
+            + ("integer inputs: bit-equal required)" if exact else
+               "fractional: (w+1) 2^-24 sum|S||T| + 1 ulp, elementwise)"))
+
+    km, pm = turns_ms(lambda: corr_kernel.ccorr_valid_cuda(t7_canv, t7_templ),
+                      lambda: ncc.ccorr_tiled_ref(t7_canv, t7_templ), 50, 5)
+    assert not torch.backends.cudnn.allow_tf32
+    lib = lambda: F.conv2d(t7_canv[:, None], t7_templ[None, None])
+    lib_d = float((lib()[:, 0] - ncc.ccorr_tiled_ref(t7_canv, t7_templ))
+                  .abs().max())
+    lm = cuda_ms(lib, 20)
+    bms, by = corr_bound(t7_canv, t7_templ)
+    log(f"[6 corr] time Test7 top layer: kernel {km:.4f} ms, plain (f64 "
+        f"conv) {pm:.4f} ms, F.conv2d f32 without TF32 {lm:.4f} ms (its max "
+        f"|d| from the plain version {lib_d}); bound {bms:.4f} ms by {by} "
+        f"({smi})")
+
+    # Phase 7: Test7's many-target scene end to end on the card.
+    corr_kernel.LAUNCHES = 0
+    warp_kernel.LAUNCHES = 0
+    res = fipm.match(scene, pattern, cfg, device=dev)
+    torch.cuda.synchronize()
+    launches = corr_kernel.LAUNCHES
+    log(f"[7 many-target] {len(res)} matches, correlation kernel launches "
+        f"{launches}, warp kernel launches {warp_kernel.LAUNCHES}")
+    if launches <= 0:
+        raise AssertionError("the many-target path never launched the "
+                             "correlation kernel")
+    if len(res) != len(truth):
+        raise AssertionError(f"expected {len(truth)} targets, found "
+                             f"{len(res)}")
+    worst = 0.0
+    for cx, cy in truth:
+        r = min(res, key=lambda r: math.hypot(r.center[0] - cx,
+                                              r.center[1] - cy))
+        dist = math.hypot(r.center[0] - cx, r.center[1] - cy)
+        worst = max(worst, dist)
+        if r.score < 0.99 or dist > 1.0 or r.angle != 0.0:
+            raise AssertionError(f"target at ({cx}, {cy}) not recovered: "
+                                 f"score {r.score}, {dist} px off, angle "
+                                 f"{r.angle}")
+    log(f"[7 many-target] all {len(truth)} planted washers found: scores "
+        f"{min(r.score for r in res):.4f}-{max(r.score for r in res):.4f}, "
+        f"centres at most {worst:.3f} px off, angle 0")
+    run = lambda: fipm.match(scene, pattern, cfg, device=dev)
+    log_walls("[7 many-target]", run, smi)
+    profile_match("[7 many-target]", run, smi)
+    stage_ms = stage_times(tm, build_pyramid, scene, pattern, cfg, dev)
+    log("[7 many-target] stages ms: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in stage_ms.items()) + f" ({smi})")
+    lv = pattern.levels[top]
+    t7_templ_u8 = t7_templ + 128.0
+    smap = ncc.ncc_score_map(t7_canv + 128.0, t7_templ_u8, lv.mean, lv.norm,
+                             lv.inv_area, lv.result_equal1)
+    tw_t, th_t = plan.templ_shapes[top][1], plan.templ_shapes[top][0]
+    score_ms = cuda_ms(lambda: ncc.ncc_score_map(
+        t7_canv + 128.0, t7_templ_u8, lv.mean, lv.norm, lv.inv_area,
+        lv.result_equal1), 5)
+    peaks_ms = cuda_ms(lambda: extract_peaks(smap, plan.k_peaks,
+                                             (tw_t, th_t), cfg.max_overlap),
+                       3)
+    log(f"[7 many-target] sweep split: score map {tuple(smap.shape)} "
+        f"{score_ms:.3f} ms (of which the kernel {km:.3f} ms), peaks "
+        f"(masked, K {plan.k_peaks}) {peaks_ms:.3f} ms ({smi})")
+
+    # Phase 8: match_template on the card against the port on the CPU.
+    src = np.random.default_rng(12).integers(0, 256, (1000, 1100),
+                                             dtype=np.uint8)
+    mt_templ = src[300:320, 400:424].copy()
+    corr_kernel.LAUNCHES = 0
+    on_card = fipm.match_template(src, mt_templ, device=dev)
+    mt_launches = corr_kernel.LAUNCHES
+    on_cpu = fipm.match_template(src, mt_templ, device="cpu")
+    d = float(np.abs(on_card - on_cpu).max())
+    peak = np.unravel_index(np.argmax(on_card), on_card.shape)
+    log(f"[8 match_template] {src.shape} x {mt_templ.shape}: card vs CPU "
+        f"max |d| {d} (atol 1e-5), kernel launches {mt_launches}, peak at "
+        f"{tuple(int(v) for v in peak)}")
+    if d > 1e-5 or mt_launches != 1 or peak != (300, 400):
+        raise AssertionError("match_template on the card disagrees")
+    # The conv and fft routes on the card, on each side of the crossover of
+    # the JAX package's cost rule (auto_method), which the port follows.
+    big = torch.as_tensor(np.random.default_rng(13).integers(
+        -128, 128, (1, 1500, 1500)).astype(np.float32), device=dev)
+    for n in (350, 400):
+        tc = big[0, 200:200 + n, 300:300 + n].contiguous()
+        conv_ms = cuda_ms(lambda: ncc.ccorr_conv(big, tc), 1)
+        fft_ms = cuda_ms(lambda: ncc.ccorr_fft(big, tc), 5)
+        exact = ncc.ccorr_conv(big, tc)
+        rel = float((ncc.ccorr_fft(big, tc) - exact).abs().max()
+                    / exact.abs().max())
+        log(f"[8 match_template] routes at (1, 1500, 1500) x ({n}, {n}): "
+            f"auto takes {ncc.auto_method(1500, 1500, n, n)}; conv (f64) "
+            f"{conv_ms:.3f} ms, fft {fft_ms:.3f} ms (max |d| from conv "
+            f"{rel:.3g} of the largest |output|) ({smi})")
+
+    # Phase 9: the small many-target scene, card against CPU.
+    for tol in (0.0, 30.0):
+        s_cfg = many_target_config(fipm, 20, tol)
+        corr_kernel.LAUNCHES = 0
+        card_vs_cpu(f"[9 card vs cpu, tol {tol:g}]", tm, s_scene, s_pat,
+                    s_cfg, dev, 20, 1e-5)
+        if corr_kernel.LAUNCHES <= 0:
+            raise AssertionError("no correlation kernel launch")
+
+    return {
+        "name": "ccorr_valid",
+        "route": "cuda",
+        "source": "fastest_image_pattern_matching_tpu_torch/csrc/"
+                  "ccorr_valid.cu",
+        "replaces": "fastest_image_pattern_matching_tpu/ops/pallas/"
+                    "corr_kernel.py:223",
+        "launches": launches,
+        "max_abs_err": max_err,
+        "ms": km,
+        "plain_ms": pm,
+        "bound_ms": bms,
+        "bound_by": by,
+        "library_ms": lm,
+    }
+
+
+def profile_match(tag, run, smi, runs=3):
+    """torch.profiler over `runs` calls of one end-to-end path after its
+    warm-up: the device's busy share of the wall time (union of the device
+    intervals of kernels, copies and fills), device events and host copies
+    or syncs per match, and the largest device consumers."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(runs):
+            run()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    events = prof.events()
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in events if e.device_type == DeviceType.CUDA)
+    if not spans:
+        raise AssertionError("the profiler saw no device activity")
+    busy, end = 0, None
+    for a, b in spans:
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    by_name = {}
+    for e in events:
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0) + e.time_range.elapsed_us()
+    syncs = sum(1 for e in events
+                if e.device_type == DeviceType.CPU
+                and e.name in ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+                               "cudaMemcpyAsync"))
+    log(f"{tag} profile of {runs} matches: wall {wall_us / 1e3:.2f} ms, "
+        f"device busy {busy / 1e3:.2f} ms ({100.0 * busy / wall_us:.1f}% of "
+        f"the wall, idle {100.0 - 100.0 * busy / wall_us:.1f}%), "
+        f"{len(spans) / runs:.0f} device events and {syncs / runs:.0f} host "
+        f"copies or syncs per match ({smi})")
+    total = sum(by_name.values()) or 1.0
+    for k, v in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
+        log(f"{tag}   {100.0 * v / total:5.1f}% {v / runs / 1e3:.3f} "
+            f"ms/match  {k[:80]}")
+
+
+def log_walls(tag, run, smi, n=5):
+    """Median wall time of n runs after warm-up, host array in."""
+    import torch
+    walls = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    log(f"{tag} wall ms (host array in, {n} runs after warm-up): median "
+        f"{statistics.median(walls):.2f}, all "
+        f"{[round(w, 2) for w in walls]} ({smi})")
+
+
+def card_vs_cpu(tag, tm, scene, pattern, cfg, dev, n_targets, score_atol):
+    """match_arrays on the card against the CPU: valid masks equal with
+    n_targets valid, scores within score_atol, centre and angle 1e-3."""
+    on_card = tm.match_arrays(scene, pattern, cfg, device=dev)
+    on_cpu = tm.match_arrays(scene, pattern, cfg, device="cpu")
+    nv = int(on_cpu["valid"].sum())
+    if not np.array_equal(on_card["valid"], on_cpu["valid"]) \
+            or nv != n_targets:
+        raise AssertionError(f"{tag}: valid masks differ or != {n_targets} "
+                             f"targets: {on_card['valid']} vs "
+                             f"{on_cpu['valid']}")
+    diffs = {k: float(np.abs(on_card[k][:nv] - on_cpu[k][:nv]).max())
+             for k in ("score", "center", "angle")}
+    log(f"{tag} {nv} targets; max |d| {diffs}")
+    if diffs["score"] > score_atol or diffs["center"] > 1e-3 \
+            or diffs["angle"] > 1e-3:
+        raise AssertionError(f"{tag}: the port on the card disagrees with "
+                             "the CPU")
 
 
 def stage_times(tm, build_pyramid, scene, pattern, cfg, dev):
-    """Per-stage CUDA-event times of one flagship match, composed from the
-    same stage functions match() runs."""
+    """Per-stage CUDA-event times of one match, composed from the same
+    stage functions match() runs."""
     import torch
     plan, stats, args = tm._prepare(scene, pattern, cfg, dev)
     st = tm.build_stages(plan, stats, dev)

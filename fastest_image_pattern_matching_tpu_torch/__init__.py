@@ -4,8 +4,10 @@ fastest_image_pattern_matching_tpu for an NVIDIA H100.
 Rotation-invariant template matching: image-pyramid coarse-to-fine
 normalised cross-correlation with rotation search, subpixel (x, y, theta)
 refinement, greedy multi-target peak extraction and rotated-rect NMS. The
-public functions take an explicit `device` (CUDA by default); every warp on
-a CUDA device runs the hand-written kernel in csrc/warp_affine.cu.
+public functions take an explicit `device` (CUDA by default). On a CUDA
+device every warp runs the hand-written kernel in csrc/warp_affine.cu and
+every large-map correlation (tol=0 many-target scenes, match_template) the
+one in csrc/ccorr_valid.cu.
 
 The pyramid and the top-layer correlation are exact in f32 only without
 TF32, so importing the package turns TF32 off for matmuls and cuDNN.
@@ -19,9 +21,11 @@ _torch.backends.cudnn.allow_tf32 = False
 from .config import MatchConfig
 from .types import LearnedPattern, MatchResult
 from .models.template_matcher import (TemplateMatcher, learn_pattern, match,
-                                      match_arrays, pattern_from_reference)
+                                      match_arrays, match_candidates,
+                                      match_template, pattern_from_reference)
 
 __all__ = [
     "MatchConfig", "LearnedPattern", "MatchResult", "TemplateMatcher",
-    "learn_pattern", "match", "match_arrays", "pattern_from_reference",
+    "learn_pattern", "match", "match_arrays", "match_candidates",
+    "match_template", "pattern_from_reference",
 ]

@@ -9,8 +9,12 @@ itself the equivalent of the reference's Match() pipeline
     and one correlation per chunk of angles), greedy peak extraction,
     candidate descent in chunks of alive candidates, batched subpixel
     solve, rotated-rect NMS. The stages run eagerly on the given device;
-    shapes follow the same static plan as the JAX package, and every warp
-    on a CUDA device goes through the hand-written kernel.
+    shapes follow the same static plan as the JAX package. On a CUDA
+    device every warp goes through the hand-written warp kernel, and every
+    large score map with a small template (the tol=0 many-target sweep)
+    through the hand-written correlation kernel.
+  * match_candidates: the top-layer candidate dump; match_template: the
+    no-pyramid score map.
 
 Sorting follows the JAX package's tie rules exactly: stable sorts where JAX
 uses top_k (lower index first) or argsort(stable), chained stable sorts in
@@ -402,6 +406,19 @@ def build_stages(plan: _Plan, stats, device):
                                   dtype=torch.float32, device=dev)
         return rotate_pt(pt, center_top, -ang * f32(D2R))
 
+    def debug_candidates(src, templs, inv_mats, trans, valid_wh, angles_arr):
+        """Top-layer candidate dump (the m_bDebugMode analogue,
+        MatchToolDlg.cpp:897-931): every extracted and thresholded sweep
+        peak as [C, 5] = (x, y at level-0 scale, angle deg, score,
+        alive)."""
+        pyr = build_pyramid(prep_src(src), top)
+        vals, locs = sweep_maps(pyr[top], templs[top], inv_mats, valid_wh)
+        pt, ang, score, alive = select_candidates(vals, locs, trans,
+                                                  angles_arr)
+        ptLT = unrotate(pt, ang) * (2.0 ** top)
+        return torch.cat([ptLT, ang[:, None], score[:, None],
+                          alive.to(torch.float32)[:, None]], dim=1)
+
     def descend_range(pyr, templs, ptLT, ang, score, alive, l_from, l_to):
         """Pyramid descent over layers l_from..l_to (inclusive, downward)."""
         for l in range(l_from, l_to - 1, -1):
@@ -511,6 +528,7 @@ def build_stages(plan: _Plan, stats, device):
     return types.SimpleNamespace(
         sweep_maps=sweep_maps, select_candidates=select_candidates,
         descend_range=descend_range, unrotate=unrotate, descend=descend,
+        debug_candidates=debug_candidates,
         finalize=finalize, prep_src=prep_src, match_fn=match_fn)
 
 
@@ -601,6 +619,24 @@ def _to_numpy(out) -> Dict[str, np.ndarray]:
             for k in ("score", "angle", "center", "corners", "valid")}
 
 
+def match_candidates(src, pattern: LearnedPattern,
+                     cfg: Optional[MatchConfig] = None,
+                     device=None) -> Dict[str, np.ndarray]:
+    """Debug candidate dump: every thresholded top-layer sweep peak before
+    refinement, the analogue of the reference's m_bDebugMode candidate
+    overlay (MatchToolDlg.cpp:897-931). Returns a dict of [C] numpy
+    arrays: x, y (LT corner at level-0 scale, top-layer frame), angle (deg,
+    sweep convention), score (top-layer NCC), alive (above the layer
+    threshold)."""
+    cfg = cfg or MatchConfig()
+    dev = resolve_device(device)
+    plan, stats, args = _prepare(src, pattern, cfg, dev)
+    packed = build_stages(plan, stats, dev).debug_candidates(*args)
+    packed = packed.cpu().numpy()
+    return {"x": packed[:, 0], "y": packed[:, 1], "angle": packed[:, 2],
+            "score": packed[:, 3], "alive": packed[:, 4] > 0.5}
+
+
 def match_arrays(src, pattern: LearnedPattern, cfg: MatchConfig,
                  device=None) -> Dict[str, np.ndarray]:
     """Run the pipeline; returns fixed-size result arrays (score / angle /
@@ -637,3 +673,32 @@ def match(src, pattern: LearnedPattern, cfg: Optional[MatchConfig] = None,
                               for reg in pattern.regions)
         results.append(r)
     return results
+
+
+def match_template(src, templ, method: str = "auto",
+                   compute_dtype: str = "bf16", device=None) -> np.ndarray:
+    """Plain full-resolution TM_CCOEFF_NORMED score map, the
+    cv::matchTemplate equivalent without a pyramid (BASELINE config 1).
+
+    method: as ops/ncc.py::ncc_score_map ("auto" picks the correlation
+    kernel on the card for large maps and small templates, fft or conv
+    otherwise). compute_dtype is accepted for the JAX package's signature
+    and has no effect: the port's correlations are exact on u8-valued
+    inputs whatever it says (fft aside, ~1e-7 relative)."""
+    del compute_dtype
+    dev = resolve_device(device)
+    src = np.asarray(src)
+    templ = np.asarray(templ)
+    if src.ndim == 3 or templ.ndim == 3:
+        from ..utils.imageio import ensure_gray
+        src = ensure_gray(src) if src.ndim == 3 else src
+        templ = ensure_gray(templ) if templ.ndim == 3 else templ
+    area = templ.size
+    mean = float(np.mean(templ, dtype=np.float64))
+    var = float(np.mean((templ.astype(np.float64) - mean) ** 2))
+    norm = float(np.sqrt(var) * np.sqrt(area))
+    out = ncc_score_map(
+        torch.as_tensor(src.astype(np.float32), device=dev)[None],
+        torch.as_tensor(templ.astype(np.float32), device=dev),
+        mean, norm, 1.0 / area, var < DBL_EPSILON, method)
+    return out[0].cpu().numpy()

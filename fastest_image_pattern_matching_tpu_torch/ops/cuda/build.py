@@ -42,28 +42,48 @@ def find_nvcc() -> str:
     return found
 
 
+def _library_path(source: str) -> str:
+    with open(os.path.join(CSRC_DIR, source), "rb") as f:
+        digest = hashlib.sha256(f.read() + repr(NVCC_FLAGS).encode())
+    stem = os.path.splitext(source)[0]
+    return os.path.join(BUILD_DIR, f"lib{stem}_{digest.hexdigest()[:16]}.so")
+
+
+def build_all(sources):
+    """Compile every csrc/<source> not built yet, one nvcc process each, all
+    started together. Returns [(path, seconds, compiler report)] in the
+    order given; seconds is 0 and the report empty for a library that was
+    already built."""
+    with _LOCK:
+        results, procs = {}, []
+        for source in sources:
+            out = _library_path(source)
+            if os.path.exists(out):
+                results[source] = (out, 0.0, "")
+                continue
+            os.makedirs(BUILD_DIR, exist_ok=True)
+            tmp = f"{out}.{os.getpid()}.tmp"
+            cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp,
+                   os.path.join(CSRC_DIR, source)]
+            procs.append((source, out, tmp, time.perf_counter(),
+                          subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                           stderr=subprocess.STDOUT,
+                                           text=True)))
+        for source, out, tmp, t0, proc in procs:
+            report, _ = proc.communicate()
+            secs = time.perf_counter() - t0
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}) for "
+                                   f"{source}:\n{report}")
+            os.replace(tmp, out)
+            results[source] = (out, secs, report)
+        return [results[s] for s in sources]
+
+
 def build(source: str):
     """Compile csrc/<source> (once per content) and return
     (path, seconds spent compiling in this call, compiler report)."""
-    src_path = os.path.join(CSRC_DIR, source)
-    with open(src_path, "rb") as f:
-        digest = hashlib.sha256(f.read() + repr(NVCC_FLAGS).encode())
-    stem = os.path.splitext(source)[0]
-    out = os.path.join(BUILD_DIR, f"lib{stem}_{digest.hexdigest()[:16]}.so")
-    with _LOCK:
-        if os.path.exists(out):
-            return out, 0.0, ""
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        tmp = f"{out}.{os.getpid()}.tmp"
-        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, src_path]
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        secs = time.perf_counter() - t0
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}) for "
-                               f"{source}:\n{proc.stdout}\n{proc.stderr}")
-        os.replace(tmp, out)
-        return out, secs, proc.stdout + proc.stderr
+    return build_all([source])[0]
 
 
 def load(source: str) -> ctypes.CDLL:

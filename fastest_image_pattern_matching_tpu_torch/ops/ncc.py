@@ -14,34 +14,41 @@ T_bar = mean(T),
     score = num / (sqrt(diff2) * templNorm), with the reference's
             rounding-error cutoff and the 1.125 clamp band.
 
-The correlations run in f32 (TF32 off): F.conv2d for the top-layer map and
-one matmul against all shifted template copies for the 7x7 descent maps.
-Both are exact while every partial sum stays below 2^24, which holds for
-the top layer (9*12*128^2 < 2^24 on the flagship).
+The raw correlation ccorr_c takes one of four routes, chosen by the JAX
+package's rule (`ncc_score_map`, method "auto"), kept so that the port
+takes the route JAX takes; its conv/fft crossover is the JAX package's
+operation-count estimate, not a crossover measured on the card (PERF.md):
+  * shiftmm: one f32 matmul against all shifted template copies, for the
+    7x7 descent maps (Ho*Wo <= 512);
+  * tiled: large maps with small templates (Ho*Wo > 65536, 2 <= w <= 129,
+    h <= 64), where the JAX package runs its Pallas tiled-band kernel. CUDA
+    tensors launch the hand-written kernel (ops/cuda/corr_kernel.py), CPU
+    tensors its plain version, the f64 convolution of the conv route;
+  * fft: large templates over large search areas (not bit-exact, ~1e-7
+    relative);
+  * conv: one f64 F.conv2d everywhere else, rounded to f32 once. It is
+    exact on integer inputs of any template size on every device; an f32
+    convolution is not once a partial sum passes 2^24 (90x100 templates on
+    full-range input move a score by 6e-5).
 """
 
 from __future__ import annotations
 
+import math
 from typing import Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .cuda import corr_kernel
 from .rounding import f32, fma
 
 FLT_EPSILON = np.float32(1.1920929e-07)
 
-# The Pallas tiled-band correlation kernel's eligibility
-# (fastest_image_pattern_matching_tpu/ops/pallas/corr_kernel.py:78-83) and
-# the map size above which the JAX package routes to it (ops/ncc.py:262).
-_TILEDBAND_MIN_OUT = 65536
-_TILEDBAND_MAX_W = 129
-_TILEDBAND_MAX_H = 64
-
-
-def _tiledband_eligible(h: int, w: int) -> bool:
-    return 2 <= w <= _TILEDBAND_MAX_W and 1 <= h <= _TILEDBAND_MAX_H
+# Above this many outputs the JAX package routes an eligible template to its
+# tiled-band kernel (fastest_image_pattern_matching_tpu/ops/ncc.py:262).
+_TILED_MIN_OUT = 65536
 
 
 def _window_sum_1d(x: torch.Tensor, k: int, dim: int) -> torch.Tensor:
@@ -66,9 +73,13 @@ def window_sums(x: torch.Tensor, hw: Tuple[int, int]) -> torch.Tensor:
 
 def ccorr_conv(canvases_c: torch.Tensor, templ_c: torch.Tensor
                ) -> torch.Tensor:
-    """Raw centred cross-correlation [B, H, W] x [h, w] -> [B, Ho, Wo] f32
-    as one f32 convolution."""
-    return F.conv2d(canvases_c[:, None], templ_c[None, None])[:, 0]
+    """Raw centred cross-correlation [B, H, W] x [h, w] -> [B, Ho, Wo] as
+    one f64 convolution, rounded to f32 once. Exact on integer inputs
+    (every sum below 2^53) whatever the summation order, so the same on
+    the card and on the CPU."""
+    out = F.conv2d(canvases_c.to(torch.float64)[:, None],
+                   templ_c.to(torch.float64)[None, None])[:, 0]
+    return out.to(torch.float32)
 
 
 def ccorr_shiftmm(canvases_c: torch.Tensor, templ_c: torch.Tensor
@@ -87,6 +98,54 @@ def ccorr_shiftmm(canvases_c: torch.Tensor, templ_c: torch.Tensor
     return out.reshape(B, Ho, Wo)
 
 
+# The plain version of the correlation kernel is the exact conv route.
+ccorr_tiled_ref = ccorr_conv
+
+
+def ccorr_tiled(canvases_c: torch.Tensor, templ_c: torch.Tensor
+                ) -> torch.Tensor:
+    """The correlation of the large-map regime: the hand-written CUDA
+    kernel for tensors on the card, its plain version for tensors on the
+    CPU. Both raise for a template the kernel does not take."""
+    if canvases_c.is_cuda or templ_c.is_cuda:
+        return corr_kernel.ccorr_valid_cuda(canvases_c, templ_c)
+    corr_kernel.check_eligible(*templ_c.shape)
+    return ccorr_tiled_ref(canvases_c, templ_c)
+
+
+def ccorr_fft(canvases_c: torch.Tensor, templ_c: torch.Tensor
+              ) -> torch.Tensor:
+    """Raw centred cross-correlation via FFT -> [B, Ho, Wo] f32.
+
+    A circular FFT of the canvas size gives the valid-mode correlation:
+    the wraparound only touches outputs beyond (H-h+1, W-w+1), which are
+    cut away. Not bit-exact (~1e-7 relative)."""
+    B, H, W = canvases_c.shape
+    h, w = templ_c.shape
+    fs = torch.fft.rfft2(canvases_c, s=(H, W))
+    ft = torch.fft.rfft2(templ_c, s=(H, W))
+    corr = torch.fft.irfft2(fs * torch.conj(ft)[None], s=(H, W))
+    return corr[:, :H - h + 1, :W - w + 1].to(torch.float32)
+
+
+def auto_method(H: int, W: int, h: int, w: int) -> str:
+    """The correlation route of method="auto", the JAX package's rule
+    (fastest_image_pattern_matching_tpu/ops/ncc.py:246-288): "shiftmm" for
+    small outputs; "tiledband" for large maps with an eligible template;
+    otherwise "fft" or "conv" by its operation-count estimate (its FFT
+    weight was set for the TPU). Where JAX takes its banded form, a TPU
+    workaround the port does not have, its banded cost is at least the conv
+    cost (W >= w), so the estimate below already gives "conv"."""
+    Ho, Wo = H - h + 1, W - w + 1
+    if Ho * Wo <= 512:
+        return "shiftmm"
+    if Ho * Wo > _TILED_MIN_OUT and corr_kernel.eligible(h, w):
+        return "tiledband"
+    conv_cost = Ho * Wo * h * w
+    fft_cost = 4000.0 * H * W * math.log2(max(H * W, 2))
+    return "fft" if conv_cost > fft_cost else "conv"
+
+
 def ncc_score_map(
     canvases: torch.Tensor,     # [B, H, W] f32 (u8-valued)
     templ: torch.Tensor,        # [h, w] f32 (u8-valued)
@@ -100,10 +159,10 @@ def ncc_score_map(
     including the flat-template all-ones shortcut (MatchToolDlg.cpp:
     1331-1335) and the epsilon / 1.125 guards (:1384-1395).
 
-    method: "conv", "shiftmm" or "auto" (shiftmm when Ho*Wo <= 512, else
-    conv). Where the JAX package would take its Pallas tiled-band kernel
-    (Ho*Wo > 65536 with an eligible template), CUDA tensors raise until that
-    kernel is ported; CPU tensors take the conv.
+    method: "conv", "shiftmm", "tiledband" (the correlation kernel on the
+    card, its plain version on the CPU), "fft", "banded" (served like
+    "tiledband", or "conv" for a template the kernel does not take) or
+    "auto" (auto_method).
     """
     h, w = templ.shape
     B, H, W = canvases.shape
@@ -116,23 +175,20 @@ def ncc_score_map(
     tc = templ - 128.0
 
     if method == "auto":
-        if Ho * Wo <= 512:
-            method = "shiftmm"
-        else:
-            if (Ho * Wo > _TILEDBAND_MIN_OUT and _tiledband_eligible(h, w)
-                    and canvases.is_cuda):
-                raise NotImplementedError(
-                    "large score maps with small templates need the Hopper "
-                    "correlation kernel (ROADMAP.md, TPU kernels to port: "
-                    "ccorr_tiledband_pallas), which is not ported yet")
-            method = "conv"
+        method = auto_method(H, W, h, w)
+    elif method == "banded":
+        method = "tiledband" if corr_kernel.eligible(h, w) else "conv"
     if method == "shiftmm":
         ccorr_c = ccorr_shiftmm(sc, tc)
+    elif method == "tiledband":
+        ccorr_c = ccorr_tiled(sc, tc)
+    elif method == "fft":
+        ccorr_c = ccorr_fft(sc, tc)
     elif method == "conv":
         ccorr_c = ccorr_conv(sc, tc)
     else:
-        raise ValueError(f"unknown correlation method {method!r} "
-                         "(expected auto|conv|shiftmm)")
+        raise ValueError(f"unknown correlation method {method!r} (expected "
+                         "auto|conv|shiftmm|tiledband|banded|fft)")
     s1c = window_sums(sc, (h, w))
     s2c = window_sums(sc * sc, (h, w))
 

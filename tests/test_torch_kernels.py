@@ -1,9 +1,10 @@
 """The port's kernel modules and import rules.
 
-On the CPU: the kernel module imports without nvcc, CPU tensors take the
-plain version, and no port source imports JAX, cv2 or the JAX package.
-Tests marked `cuda` compare the hand-written kernel with its plain version
-on the card and skip without one.
+On the CPU: the kernel modules import without nvcc, CPU tensors take the
+plain versions, the wrappers raise on what their kernels do not take, and
+no port source imports JAX, cv2 or the JAX package. Tests marked `cuda`
+compare the hand-written kernels with their plain versions on the card and
+skip without one.
 """
 
 import ast
@@ -17,7 +18,8 @@ import torch
 
 from fastest_image_pattern_matching_tpu_torch.ops import ncc as tncc
 from fastest_image_pattern_matching_tpu_torch.ops import warp as twarp
-from fastest_image_pattern_matching_tpu_torch.ops.cuda import warp_kernel
+from fastest_image_pattern_matching_tpu_torch.ops.cuda import (corr_kernel,
+                                                           warp_kernel)
 from fastest_image_pattern_matching_tpu_torch.utils import device as tdevice
 from fastest_image_pattern_matching_tpu_torch.utils import geometry
 
@@ -137,10 +139,87 @@ def test_warp_kernel_matches_plain_on_card(cuda_device, out_hw, B, border):
 
 
 @pytest.mark.cuda
-def test_tiledband_regime_raises_on_card(cuda_device):
-    """Where the JAX package would take its tiled-band kernel, the card
-    raises until that kernel is ported."""
-    canv = torch.zeros((1, 300, 300), device=cuda_device)
-    with pytest.raises(NotImplementedError):
-        tncc.ncc_score_map(canv, torch.ones((5, 6), device=cuda_device),
-                           1.0, 1.0, 1 / 30.0, False)
+def test_tiledband_regime_launches_kernel_on_card(cuda_device):
+    """Where the JAX package takes its tiled-band kernel, the card launches
+    the correlation kernel once; its correlation is bit-equal to the plain
+    version's on the card, and the scores agree with the port on the CPU
+    to 1e-6 (the same exact sums and IEEE epilogue on both)."""
+    rng = np.random.default_rng(8)
+    canv = torch.as_tensor(rng.integers(0, 256, (1, 300, 300)).astype(
+        np.float32), device=cuda_device)
+    t = torch.as_tensor(rng.integers(0, 256, (5, 6)).astype(np.float32),
+                        device=cuda_device)
+    stats = (float(t.double().mean()), 1234.5, 1 / 30.0, False)
+    assert tncc.auto_method(300, 300, 5, 6) == "tiledband"
+    before = corr_kernel.LAUNCHES
+    got = tncc.ncc_score_map(canv, t, *stats)
+    torch.cuda.synchronize()
+    assert corr_kernel.LAUNCHES == before + 1
+    want = tncc.ncc_score_map(canv.cpu(), t.cpu(), *stats)
+    torch.testing.assert_close(got.cpu(), want, atol=1e-6, rtol=0)
+    sc, tc = canv - 128.0, t - 128.0
+    assert torch.equal(tncc.ccorr_tiled(sc, tc), tncc.ccorr_tiled_ref(sc, tc))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 1824, 1824, 27, 27),
+                                   (8, 300, 310, 27, 27),
+                                   (1, 200, 400, 64, 129),
+                                   (2, 97, 131, 1, 2),
+                                   (3, 70, 1000, 13, 2)])
+def test_corr_kernel_matches_plain_on_card(cuda_device, shape):
+    """Kernel vs plain version on the card: bit-equal on integer inputs;
+    on fractional inputs within the kernel's rounding bound, elementwise
+    (w + 1) * 2^-24 * sum |S||T| over the window, plus one f32 ulp of the
+    result."""
+    B, H, W, h, w = shape
+    rng = np.random.default_rng(B + h)
+    S = torch.as_tensor(rng.integers(-128, 128, (B, H, W)).astype(np.float32),
+                        device=cuda_device)
+    T = torch.as_tensor(rng.integers(-128, 128, (h, w)).astype(np.float32),
+                        device=cuda_device)
+    before = corr_kernel.LAUNCHES
+    got = corr_kernel.ccorr_valid_cuda(S, T)
+    want = tncc.ccorr_tiled_ref(S, T)
+    torch.cuda.synchronize()
+    assert corr_kernel.LAUNCHES == before + 1
+    assert torch.equal(got, want)
+    Sf = S + torch.as_tensor(rng.uniform(-0.5, 0.5, S.shape).astype(
+        np.float32), device=cuda_device)
+    got = corr_kernel.ccorr_valid_cuda(Sf, T)
+    want = tncc.ccorr_tiled_ref(Sf, T)
+    bound = ((w + 1) * 2.0**-24 * tncc.ccorr_tiled_ref(Sf.abs(), T.abs())
+             .double() + 2.0**-23 * want.double().abs())
+    assert bool(((got.double() - want.double()).abs() <= bound).all())
+
+
+def test_corr_kernel_module_imports_without_nvcc():
+    """Importing the correlation wrapper, in a fresh process with no nvcc
+    reachable, builds and loads nothing."""
+    env = dict(os.environ, PATH=os.path.dirname(sys.executable),
+               CUDA_HOME="/nonexistent", CUDA_PATH="/nonexistent")
+    code = ("import fastest_image_pattern_matching_tpu_torch.ops.cuda."
+            "corr_kernel as c; import fastest_image_pattern_matching_tpu_"
+            "torch.ops.ncc; assert c._LIB is None and c.LAUNCHES == 0")
+    subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                   check=True, timeout=120)
+
+
+@pytest.mark.parametrize("canv_shape,templ_shape", [
+    ((1, 40, 50), (5, 6)),      # eligible, but on the CPU
+    ((1, 40, 50), (5, 1)),      # too narrow
+    ((1, 80, 150), (65, 9)),    # too tall
+    ((1, 80, 150), (9, 130)),   # too wide
+])
+def test_corr_wrapper_rejects_cpu_tensors_and_ineligible_shapes(
+        canv_shape, templ_shape):
+    """The CUDA entry point raises instead of falling back to the plain
+    version, and the eligibility rule is the TPU kernel's: an eligible
+    template on the CPU is refused for its device, an ineligible one for
+    its shape."""
+    h, w = templ_shape
+    ok = corr_kernel.eligible(h, w)
+    assert ok == (templ_shape == (5, 6))
+    with pytest.raises(ValueError, match="CUDA device" if ok else "takes 2"):
+        corr_kernel.ccorr_valid_cuda(torch.zeros(canv_shape),
+                                     torch.zeros(templ_shape))

@@ -263,17 +263,19 @@ def test_ncc_score_map_vs_jax(case):
 
 def test_ncc_tiledband_regime_takes_conv_on_cpu():
     """A map the JAX package would send to its tiled-band kernel: the CPU
-    port takes the plain conv and matches JAX's plain route (atol 1e-5)."""
+    port takes the kernel's plain version, an f64 conv, and matches JAX's
+    plain route (atol 1e-5); an unknown method raises."""
     rng = np.random.default_rng(24)
     canv = rng.integers(0, 256, (1, 270, 262)).astype(np.float32)
     t = rng.integers(0, 256, (6, 5)).astype(np.float32)
     stats = _templ_stats(t)
+    assert tncc.auto_method(270, 262, 6, 5) == "tiledband"
     want = jncc.ncc_score_map(jnp.asarray(canv), jnp.asarray(t), *stats,
                               "f32", "conv")
     got = tncc.ncc_score_map(_t(canv), _t(t), *stats)
     np.testing.assert_allclose(_np(got), _np(want), atol=1e-5)
     with pytest.raises(ValueError):
-        tncc.ncc_score_map(_t(canv), _t(t), *stats, method="fft")
+        tncc.ncc_score_map(_t(canv), _t(t), *stats, method="fast")
 
 
 # -------------------------------------------------------------------- peaks
