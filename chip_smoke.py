@@ -9,8 +9,14 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      from the sources in this checkout (nvcc, sm_90a), one nvcc each, in
      parallel.
   3. warp kernel against its plain PyTorch version on the card, at the
-     shapes of the flagship's main path, plus the pyramid on the card
-     against the CPU; times of kernel, plain version and F.grid_sample.
+     shapes of the flagship's main path (L0 also with all maps at 0, 45
+     and 90 deg), a map wholly outside the image and general affine maps
+     (which must take the global-tap branch, and only they), plus the
+     pyramid on the card against the CPU; times of kernel, plain version
+     and F.grid_sample, each as a host-driven loop and as device time
+     alone (a CUDA graph); then every warp launch of one flagship match,
+     recorded with its own inputs, held against the plain version and
+     timed alone, per pyramid level.
   4. the flagship (4024x3036 source, 762x521 template, tolerance 180 deg,
      three planted targets) through learn_pattern + match on the card,
      which must find the three targets and launch the warp kernel; wall
@@ -20,14 +26,16 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      three-target scene.
   6. correlation kernel against its plain version on the card (bit-equal
      on integer inputs): Test7's top layer (1824x1824 x 27x27), 8 rotated
-     canvases, the template-size corners, a ragged output, and fractional
-     inputs within the kernel's rounding bound; times of kernel, plain
-     version and F.conv2d at Test7's shape.
+     canvases, the template-size corners, a ragged output, fractional
+     inputs within the kernel's rounding bound and a canvas with one
+     fractional patch; the blocks of each launch on the int8 and f32
+     paths; times of kernel (int8 path, and f32 path on the canvas plus
+     0.25, in turns), plain version and F.conv2d at Test7's shape.
   7. Test7's many-target scene (3648x3648 source, 100 planted 54x54
      washers, tol 0) through learn_pattern + match on the card, which must
-     find all 100 and launch the correlation kernel; wall time, per-stage
-     times, a profiler pass as in phase 4, and the sweep's split into score
-     map and peaks.
+     find all 100 and launch the correlation kernel once, every block on
+     its int8 path; wall time, per-stage times, a profiler pass as in
+     phase 4, and the sweep's split into score map and peaks.
   8. match_template on the card against the port on the CPU; times of the
      conv and fft routes on each side of the "auto" rule's crossover.
   9. the port on the card against the CPU on a 720x720 many-target scene,
@@ -213,6 +221,11 @@ def many_target_scene(size, n, seed=7):
     return scene, t, [(x + tw / 2.0, y + th / 2.0) for y, x in placed]
 
 
+def flagship_config(fipm):
+    return fipm.MatchConfig(max_pos=3, score=0.7, tolerance_angle=180.0,
+                            max_overlap=0.1, use_subpixel=True)
+
+
 def many_target_config(fipm, max_pos, tolerance_angle=0.0):
     """Test7's configuration (tools/suite_bench.py:101-105)."""
     return fipm.MatchConfig(max_pos=max_pos, score=0.5,
@@ -301,12 +314,44 @@ def cuda_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
-def turns_ms(kernel, plain, iters_kernel, iters_plain):
+def device_ms(fn, n=20, reps=5):
+    """Device time of one call of fn, apart from the host's: CUDA events
+    around the replays of a CUDA graph that holds n calls, so no host work
+    sits between the launches. Mean over reps replays."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (n * reps)
+    del graph
+    torch.cuda.empty_cache()
+    return ms
+
+
+def turns_ms(kernel, plain, iters_kernel, iters_plain, timer=None):
     """Kernel and plain version timed in turns (plain, kernel, kernel,
-    plain) within one call, on one card: (kernel ms, plain ms)."""
-    pm = [cuda_ms(plain, iters_plain)]
-    km = [cuda_ms(kernel, iters_kernel), cuda_ms(kernel, iters_kernel)]
-    pm.append(cuda_ms(plain, iters_plain))
+    plain) within one call, on one card: (kernel ms, plain ms). The timer
+    is cuda_ms (host-driven loop) unless another is given."""
+    timer = timer or cuda_ms
+    pm = [timer(plain, iters_plain)]
+    km = [timer(kernel, iters_kernel), timer(kernel, iters_kernel)]
+    pm.append(timer(plain, iters_plain))
     return statistics.mean(km), statistics.mean(pm)
 
 
@@ -406,7 +451,6 @@ def main() -> int:
 
     warp = flagship_phases(fipm, warp_kernel, dev, smi)
     corr = many_target_phases(fipm, corr_kernel, warp_kernel, dev, smi)
-
     print(json.dumps({"kernels": [warp, corr]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
@@ -430,8 +474,7 @@ def flagship_phases(fipm, warp_kernel, dev, smi):
 
     # Phase 3: kernel against plain version at the main path's shapes.
     scene, templ, truth = flagship_scene()
-    cfg = fipm.MatchConfig(max_pos=3, score=0.7, tolerance_angle=180.0,
-                           max_overlap=0.1, use_subpixel=True)
+    cfg = flagship_config(fipm)
     pattern = fipm.learn_pattern(templ, 256, device=dev)
     plan = tm._make_plan(scene.shape, pattern, cfg)
     scene_d = torch.as_tensor(scene.astype(np.float32), device=dev)
@@ -444,7 +487,7 @@ def flagship_phases(fipm, warp_kernel, dev, smi):
     inv_sweep = torch.as_tensor(tm._top_sweep_arrays(plan)[0], device=dev)
     rng = np.random.default_rng(3)
 
-    def roi_maps(l, n, near_border=False):
+    def roi_maps(l, n, near_border=False, angle=None):
         sh_l, sw_l = geometry.pyramid_sizes(scene.shape, plan.top)[l]
         th_l, tw_l = plan.templ_shapes[l]
         if near_border:
@@ -455,8 +498,9 @@ def flagship_phases(fipm, warp_kernel, dev, smi):
             p2 = np.stack([rng.uniform(0, sw_l - tw_l, n),
                            rng.uniform(0, sh_l - th_l, n)], -1)
         p2 = torch.as_tensor(p2.astype(np.float32), device=dev)
-        ang = torch.as_tensor(rng.uniform(-180, 180, n).astype(np.float32),
-                              device=dev)
+        ang = (rng.uniform(-180, 180, n) if angle is None
+               else np.full(n, angle))
+        ang = torch.as_tensor(ang.astype(np.float32), device=dev)
         center = ((sw_l - 1) / 2.0, (sh_l - 1) / 2.0)
         ct = torch.tensor([f32(v) for v in center], device=dev)
         lt = W.rotate_pt(p2, ct, ang * f32(math.pi / 180.0))
@@ -469,10 +513,25 @@ def flagship_phases(fipm, warp_kernel, dev, smi):
                         ("L0_border", 0, True)):
         maps, hw = roi_maps(l, 24, nb)
         shapes[name] = (pyr[l], maps, hw, 0.0)
+    for a in (0.0, 45.0, 90.0):
+        maps, hw = roi_maps(0, 24, angle=a)
+        shapes[f"L0 at {a:g} deg"] = (pyr[0], maps, hw, 0.0)
     shapes["identity"] = (pyr[0], torch.tensor(
         [[[1.0, 0.0, 0.0], [0.0, 1.0, 0.0]]], device=dev), scene.shape, 0.0)
+    # Off the main path: every tile wholly outside the image (all border),
+    # and general affine maps (scale about 3) whose tap boxes exceed the
+    # staging buffer, so every block (all are full 32x32 tiles) reads its
+    # taps from global memory.
+    shapes["outside"] = (pyr[0], torch.tensor(
+        [[[0.8, 0.6, -9000.0], [-0.6, 0.8, 50.0]]], device=dev),
+        (200, 300), 7.0)
+    shapes["general affine"] = (pyr[0], torch.tensor(
+        [[[3.0, 0.4, 10.5], [-0.3, 2.5, 20.25]],
+         [[-2.7, 1.1, 3900.0], [0.9, 2.9, 100.0]]], device=dev),
+        (288, 384), 0.0)
 
     max_err = 0.0
+    warp_kernel.global_tap_blocks(reset=True)
     for name, (src, maps, hw, border) in shapes.items():
         got = warp_kernel.warp_affine_cuda(src, maps, hw, border, True)
         got_u = warp_kernel.warp_affine_cuda(src, maps, hw, border, False)
@@ -484,44 +543,73 @@ def flagship_phases(fipm, warp_kernel, dev, smi):
         if du > 5e-3:
             raise AssertionError(f"{name}: unquantized max |d| {du}")
         max_err = max(max_err, d, du)
+        n_blocks = 2 * maps.shape[0] * math.ceil(hw[0] / 32) * math.ceil(
+            hw[1] / 32)
+        n_global = warp_kernel.global_tap_blocks(reset=True)
+        if (n_global == n_blocks) != (name == "general affine") \
+                or (n_global and n_global != n_blocks):
+            raise AssertionError(f"{name}: {n_global} of {n_blocks} blocks "
+                                 "read their taps from global memory")
         log(f"[3 warp] {name}: {tuple(maps.shape)} -> {tuple(got.shape)} "
             f"from {tuple(src.shape)}; quantized mismatches {n_bad}, max "
             f"|d| {d} (allowed: |d| <= 1 on < 1e-3 of pixels, at .5 "
-            f"boundaries only); unquantized max |d| {du} (atol 5e-3)")
+            f"boundaries only); unquantized max |d| {du} (atol 5e-3); "
+            f"blocks with global taps {n_global} of {n_blocks}")
     src0, maps0, hw0, _ = shapes["identity"]
     if not torch.equal(warp_kernel.warp_affine_cuda(src0, maps0, hw0, 0.0,
                                                     True)[0], src0):
         raise AssertionError("identity warp does not reproduce the source")
 
+    # Times: "loop" is a host-driven loop of launches (CUDA events around
+    # it, host work between launches included); "device" the replay of a
+    # CUDA graph of 20 launches (device time alone).
     times = {}
-    for name, iters in (("sweep", 200), ("L0", 20)):
+    for name, iters in (("sweep", 200), ("L0", 20), ("L0 at 0 deg", 20),
+                        ("L0 at 45 deg", 20), ("L0 at 90 deg", 20)):
         src, maps, hw, border = shapes[name]
-        km, pm = turns_ms(
-            lambda: warp_kernel.warp_affine_cuda(src, maps, hw, border, True),
-            lambda: W.warp_affine_batch(src, maps, hw, border, quantize=True),
-            iters, iters)
+        kern = lambda: warp_kernel.warp_affine_cuda(src, maps, hw, border,
+                                                    True)
+        plain = lambda: W.warp_affine_batch(src, maps, hw, border,
+                                            quantize=True)
+        if name in ("sweep", "L0"):
+            km, pm = turns_ms(kern, plain, iters, iters)
+        else:
+            km, pm = cuda_ms(kern, iters), float("nan")
+        kdm = device_ms(kern)
         lib = grid_sample_call(src, maps, hw, border)
         lib_d = float((lib()[:, 0] + border - W.warp_affine_batch(
             src, maps, hw, border, quantize=False)).abs().max())
-        lm = cuda_ms(lib, iters)
+        lm, ldm = cuda_ms(lib, iters), device_ms(lib)
         bms, by = warp_bound(src, maps, hw)
-        times[name] = (km, pm, lm, bms, by)
-        log(f"[3 warp] time {name}: kernel {km:.4f} ms, plain {pm:.4f} ms, "
-            f"F.grid_sample {lm:.4f} ms (its max |d| from the plain "
-            f"unquantized warp {lib_d:.3g}); bound {bms:.4f} ms by {by} "
-            f"({smi})")
+        times[name] = (km, pm, lm, bms, by, kdm, ldm)
+        log(f"[3 warp] time {name}: kernel loop {km:.4f} ms, device "
+            f"{kdm:.4f} ms ({100 * bms / kdm:.0f}% of bound); plain loop "
+            f"{pm:.4f} ms; F.grid_sample loop {lm:.4f} ms, device "
+            f"{ldm:.4f} ms (its max |d| from the plain unquantized warp "
+            f"{lib_d:.3g}); bound {bms:.4f} ms by {by} ({smi})")
+        if name == "sweep":
+            kl, ll = turns_ms(kern, lib, iters, iters)
+            log(f"[3 warp] sweep loop in turns with F.grid_sample: kernel "
+                f"{kl:.4f} ms, F.grid_sample {ll:.4f} ms ({smi})")
+    max_err = max(max_err, main_path_warps(fipm, warp_kernel, W, scene,
+                                           pattern, cfg, dev, plan, smi))
 
     # Phase 4: the flagship end to end, through the user entry points.
     warp_kernel.LAUNCHES = 0
+    warp_kernel.global_tap_blocks(reset=True)
     res = fipm.match(scene, pattern, cfg, device=dev)
     torch.cuda.synchronize()
     launches = warp_kernel.LAUNCHES
-    log(f"[4 flagship] {len(res)} matches, warp kernel launches {launches}")
+    n_global = warp_kernel.global_tap_blocks(reset=True)
+    log(f"[4 flagship] {len(res)} matches, warp kernel launches {launches} "
+        f"(blocks that read taps from global memory: {n_global})")
     for r in res:
         log(f"[4 flagship]   score {r.score:.4f} angle {r.angle:.3f} "
             f"centre ({r.center[0]:.2f}, {r.center[1]:.2f})")
     if launches <= 0:
         raise AssertionError("the main path never launched the warp kernel")
+    if n_global:
+        raise AssertionError("a rotation map exceeded the staging buffer")
     if len(res) != 3:
         raise AssertionError(f"expected 3 targets, found {len(res)}")
     for cx, cy, a in truth:
@@ -547,7 +635,7 @@ def flagship_phases(fipm, warp_kernel, dev, smi):
     s_pat = fipm.learn_pattern(s_templ, 256, device="cpu")
     card_vs_cpu("[5 card vs cpu]", tm, s_scene, s_pat, s_cfg, dev, 3, 1e-4)
 
-    km, pm, lm, bms, by = times["L0"]
+    km, pm, lm, bms, by, kdm, ldm = times["L0"]
     return {
         "name": "warp_affine",
         "route": "cuda",
@@ -557,11 +645,13 @@ def flagship_phases(fipm, warp_kernel, dev, smi):
                     "warp_kernel.py:86",
         "launches": launches,
         "max_abs_err": max_err,
-        "ms": km,
+        "ms": kdm,
         "plain_ms": pm,
         "bound_ms": bms,
         "bound_by": by,
-        "library_ms": lm,
+        "library_ms": ldm,
+        "loop_ms": km,
+        "library_loop_ms": lm,
     }
 
 
@@ -626,18 +716,30 @@ def many_target_phases(fipm, corr_kernel, warp_kernel, dev, smi):
              ("w=2", ints((3, 70, 1000)), ints((13, 2))),
              ("h=1", ints((2, 97, 131)), ints((1, 9))),
              ("ragged 307x529 output", ints((2, 333, 555)), ints((27, 27)))]
+    # One fractional patch: the blocks that stage it take the f32 path, the
+    # others the int8 path, in one launch.
+    mixed = t7_canv.clone()
+    mixed[0, 500:540, 700:760] += 0.5
+    cases.append(("Test7 top layer, one fractional patch", mixed, t7_templ))
     max_err = 0.0
+    corr_kernel.path_blocks(reset=True)
     for tag, canv, tc in cases:
         got = corr_kernel.ccorr_valid_cuda(canv, tc)
         want = ncc.ccorr_tiled_ref(canv, tc)
         torch.cuda.synchronize()
         d = check_corr(got, want, canv, tc, tag)
         max_err = max(max_err, d)
+        n_int8, n_f32 = corr_kernel.path_blocks(reset=True)
         exact = bool((canv == canv.round()).all())
+        if (exact and n_f32) or (n_f32 == 0) != exact \
+                or ("patch" in tag and not (n_int8 and n_f32)):
+            raise AssertionError(f"{tag}: {n_int8} int8 and {n_f32} f32 "
+                                 "blocks")
         log(f"[6 corr] {tag}: {tuple(canv.shape)} x {tuple(tc.shape)} -> "
             f"{tuple(got.shape)}; max |d| {d} ("
             + ("integer inputs: bit-equal required)" if exact else
-               "fractional: (w+1) 2^-24 sum|S||T| + 1 ulp, elementwise)"))
+               "fractional: (w+1) 2^-24 sum|S||T| + 1 ulp, elementwise)")
+            + f"; blocks int8 {n_int8}, f32 {n_f32}")
 
     km, pm = turns_ms(lambda: corr_kernel.ccorr_valid_cuda(t7_canv, t7_templ),
                       lambda: ncc.ccorr_tiled_ref(t7_canv, t7_templ), 50, 5)
@@ -647,22 +749,35 @@ def many_target_phases(fipm, corr_kernel, warp_kernel, dev, smi):
                   .abs().max())
     lm = cuda_ms(lib, 20)
     bms, by = corr_bound(t7_canv, t7_templ)
-    log(f"[6 corr] time Test7 top layer: kernel {km:.4f} ms, plain (f64 "
-        f"conv) {pm:.4f} ms, F.conv2d f32 without TF32 {lm:.4f} ms (its max "
-        f"|d| from the plain version {lib_d}); bound {bms:.4f} ms by {by} "
-        f"({smi})")
+    # Device time alone (CUDA graph of 20 launches): the integer canvas
+    # against the same canvas plus 0.25 (every block fractional), in turns.
+    frac = t7_canv + 0.25
+    kdm, kdm_frac = turns_ms(
+        lambda: corr_kernel.ccorr_valid_cuda(t7_canv, t7_templ),
+        lambda: corr_kernel.ccorr_valid_cuda(frac, t7_templ), 20, 20,
+        timer=device_ms)
+    ldm = device_ms(lib, 5, 2)
+    log(f"[6 corr] time Test7 top layer: kernel loop {km:.4f} ms, device "
+        f"{kdm:.4f} ms ({100 * bms / kdm:.0f}% of bound), device on the "
+        f"fractional canvas {kdm_frac:.4f} ms; plain (f64 conv) loop "
+        f"{pm:.4f} ms; F.conv2d f32 without TF32 loop {lm:.4f} ms, device "
+        f"{ldm:.4f} ms (its max |d| from the plain version {lib_d}); bound "
+        f"{bms:.4f} ms by {by} ({smi})")
 
     # Phase 7: Test7's many-target scene end to end on the card.
     corr_kernel.LAUNCHES = 0
     warp_kernel.LAUNCHES = 0
+    corr_kernel.path_blocks(reset=True)
     res = fipm.match(scene, pattern, cfg, device=dev)
     torch.cuda.synchronize()
     launches = corr_kernel.LAUNCHES
+    n_int8, n_f32 = corr_kernel.path_blocks(reset=True)
     log(f"[7 many-target] {len(res)} matches, correlation kernel launches "
-        f"{launches}, warp kernel launches {warp_kernel.LAUNCHES}")
-    if launches <= 0:
-        raise AssertionError("the many-target path never launched the "
-                             "correlation kernel")
+        f"{launches} (blocks on the int8 path {n_int8}, on the f32 path "
+        f"{n_f32}), warp kernel launches {warp_kernel.LAUNCHES}")
+    if launches != 1 or n_int8 <= 0 or n_f32:
+        raise AssertionError("the many-target path did not take the "
+                             "correlation kernel's int8 path once")
     if len(res) != len(truth):
         raise AssertionError(f"expected {len(truth)} targets, found "
                              f"{len(res)}")
@@ -749,12 +864,87 @@ def many_target_phases(fipm, corr_kernel, warp_kernel, dev, smi):
                     "corr_kernel.py:223",
         "launches": launches,
         "max_abs_err": max_err,
-        "ms": km,
+        "ms": kdm,
         "plain_ms": pm,
         "bound_ms": bms,
         "bound_by": by,
-        "library_ms": lm,
+        "library_ms": ldm,
+        "loop_ms": km,
+        "library_loop_ms": lm,
+        "fractional_ms": kdm_frac,
     }
+
+
+def record_calls(module, name, run):
+    """Run `run` with module.<name> wrapped so that every call's arguments
+    are kept (tensors cloned); returns [args]."""
+    import torch
+    orig = getattr(module, name)
+    calls = []
+
+    def recorder(*args):
+        calls.append(tuple(a.clone() if torch.is_tensor(a) else a
+                           for a in args))
+        return orig(*args)
+
+    setattr(module, name, recorder)
+    try:
+        run()
+    finally:
+        setattr(module, name, orig)
+    return calls
+
+
+def main_path_warps(fipm, warp_kernel, W, scene, pattern, cfg, dev, plan,
+                    smi):
+    """Every warp launch of one flagship match, recorded with its own
+    inputs, held against the plain version (ops/warp.py::warp_affine_batch)
+    under phase 3's contract, then timed alone: one line per pyramid level
+    with the launches per match, the shapes, the kernel's device time and
+    host-loop time, F.grid_sample's device time and the bound, and the
+    level's share of launches x (device time - bound). Returns the largest
+    |d| from the plain version."""
+    import torch
+    from fastest_image_pattern_matching_tpu_torch.utils import geometry
+    calls = record_calls(warp_kernel, "warp_affine_cuda",
+                         lambda: fipm.match(scene, pattern, cfg, device=dev))
+    sizes = geometry.pyramid_sizes(scene.shape, plan.top)
+    rows, max_err = {}, 0.0
+    for src, maps, hw, border, quantize in calls:
+        lv = sizes.index(tuple(src.shape))
+        tag = "sweep" if lv == plan.top else f"L{lv}"
+        got = warp_kernel.warp_affine_cuda(src, maps, hw, border, quantize)
+        ref_u = W.warp_affine_batch(src, maps, hw, border, quantize=False)
+        if quantize:
+            ref = W.warp_affine_batch(src, maps, hw, border, quantize=True)
+            _, d = check_quantized(got, ref, ref_u, f"main path {tag}")
+        else:
+            d = float((got - ref_u).abs().max())
+            if d > 5e-3:
+                raise AssertionError(f"main path {tag}: unquantized max |d| "
+                                     f"{d}")
+        max_err = max(max_err, d)
+        kern = lambda: warp_kernel.warp_affine_cuda(src, maps, hw, border,
+                                                    quantize)
+        kdm, km = device_ms(kern), cuda_ms(kern, 20)
+        ldm = device_ms(grid_sample_call(src, maps, hw, border))
+        bms, _ = warp_bound(src, maps, hw)
+        rows.setdefault(tag, []).append(
+            (tuple(maps.shape[:1]) + tuple(hw), tuple(src.shape), kdm, km,
+             ldm, bms))
+    loss = {t: sum(r[2] - r[5] for r in rs) for t, rs in rows.items()}
+    total = sum(loss.values()) or 1.0
+    for tag, rs in rows.items():
+        log(f"[3 warp] main path {tag}: {len(rs)} launches per match; "
+            + "; ".join(f"{'x'.join(map(str, o))} from "
+                        f"{'x'.join(map(str, i))}: device {d:.4f} ms, loop "
+                        f"{k:.4f} ms, F.grid_sample device {g:.4f} ms, bound "
+                        f"{b:.4f} ms" for o, i, d, k, g, b in rs)
+            + f"; launches x (device - bound) {loss[tag]:.4f} ms "
+            f"({100 * loss[tag] / total:.0f}%) ({smi})")
+    log(f"[3 warp] main path: {len(calls)} launches held against the plain "
+        f"version, max |d| {max_err}")
+    return max_err
 
 
 def profile_match(tag, run, smi, runs=3):

@@ -2,13 +2,15 @@
 
 Replaces fastest_image_pattern_matching_tpu/ops/pallas/corr_kernel.py::
 ccorr_tiledband_pallas: the valid-mode raw centred correlation of B
-canvases with one small template. The kernel stages a canvas window and the
-template in shared memory and runs f32 FMAs along each template row, adding
-the rows in f64, so it is exact on integer inputs. It is bound by the CUDA
-cores' FMA rate (about 0.08 ms at the many-target path's 1824x1824 x 27x27
-shape, against a memory bound of 7.8 us); see the source for the numbers.
-Its plain PyTorch version is ops/ncc.py::ccorr_tiled_ref;
-ops/ncc.py::ccorr_tiled sends CPU tensors there and CUDA tensors here.
+canvases with one small template. Each block checks, while it stages its
+canvas window, whether every value is an integer in [-128, 127]; if so it
+runs a banded-Toeplitz int8 GEMM on the tensor cores (mma.sync, exact
+int32 sums), else the f32-FMA/f64 path. Both are exact on integer inputs,
+so the kernel is bit-equal to its plain version there. The function is
+bound by memory (7.8 us at the many-target path's 1824x1824 x 27x27
+shape); see the source for the numbers. Its plain PyTorch version is
+ops/ncc.py::ccorr_tiled_ref; ops/ncc.py::ccorr_tiled sends CPU tensors
+there and CUDA tensors here.
 
 The library is built with nvcc at the first launch, never on import.
 """
@@ -19,7 +21,7 @@ import ctypes
 
 import torch
 
-from . import build
+from . import build, launch
 
 SOURCE = "ccorr_valid.cu"
 
@@ -53,7 +55,7 @@ def _lib() -> ctypes.CDLL:
         lib.fipm_ccorr_valid.argtypes = [
             ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
             ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-            ctypes.c_void_p]
+            ctypes.c_void_p, ctypes.c_void_p]
         lib.fipm_ccorr_valid.restype = ctypes.c_int
         lib.fipm_ccorr_error_string.argtypes = [ctypes.c_int]
         lib.fipm_ccorr_error_string.restype = ctypes.c_char_p
@@ -84,7 +86,7 @@ def ccorr_valid_cuda(canvases_c: torch.Tensor, templ_c: torch.Tensor
         raise ValueError("ccorr_valid_cuda takes contiguous tensors")
     if h > H or w > W:
         raise ValueError(f"template {h}x{w} larger than canvas {H}x{W}")
-    if not (B <= 65535 and (H - h + 32) // 32 <= 65535
+    if not (B <= 65535 and (H - h + 64) // 64 <= 65535
             and B * H * W < 2**31):
         raise ValueError(f"{B}x{H}x{W} canvases exceed the kernel's grid or "
                          "index range")
@@ -92,14 +94,20 @@ def ccorr_valid_cuda(canvases_c: torch.Tensor, templ_c: torch.Tensor
                       device=canvases_c.device)
     if out.numel() == 0:
         return out
-    lib = _lib()
-    with torch.cuda.device(canvases_c.device):
-        stream = torch.cuda.current_stream(canvases_c.device).cuda_stream
-        err = lib.fipm_ccorr_valid(canvases_c.data_ptr(), B, H, W,
-                                   templ_c.data_ptr(), h, w, out.data_ptr(),
-                                   stream)
+    lib = _LIB or _lib()
+    err = launch.launch(
+        lib.fipm_ccorr_valid, canvases_c.device, canvases_c.data_ptr(), B, H,
+        W, templ_c.data_ptr(), h, w, out.data_ptr(),
+        launch.counters("corr_path_blocks", canvases_c.device, 2).data_ptr())
     if err != 0:
         raise RuntimeError("ccorr_valid kernel launch failed: "
                            + lib.fipm_ccorr_error_string(err).decode())
     LAUNCHES += 1
     return out
+
+
+def path_blocks(reset: bool = False):
+    """(int8 blocks, f32 blocks) launched so far: how many blocks took the
+    tensor-core path and how many found a value that is not an integer in
+    [-128, 127] and took the f32 path (one host sync)."""
+    return tuple(launch.read_counters("corr_path_blocks", 2, reset))

@@ -1,9 +1,11 @@
 """Wrapper of the hand-written CUDA warp kernel (csrc/warp_affine.cu).
 
 Replaces fastest_image_pattern_matching_tpu/ops/pallas/warp_kernel.py::
-warp_affine_pallas. The kernel is one thread per output pixel with four
-bounds-checked taps; it is bound by memory and L2 (about 16 B read, mostly
-cache hits, and 4 B written per output pixel). Its plain PyTorch version is
+warp_affine_pallas. A block stages the source footprint of its 32x32
+output tile in shared memory and gathers its taps there; each thread
+writes 4 consecutive outputs as one float4 in each of 2 rows. It is bound
+by memory (the outputs written once and the source pixels the maps
+touch). Its plain PyTorch version is
 ops/warp.py::warp_affine_batch; ops/warp.py::warp_affine_dispatch sends CPU
 tensors there and CUDA tensors here.
 
@@ -17,7 +19,7 @@ from typing import Tuple
 
 import torch
 
-from . import build
+from . import build, launch
 
 SOURCE = "warp_affine.cu"
 
@@ -35,7 +37,7 @@ def _lib() -> ctypes.CDLL:
         lib.fipm_warp_affine.argtypes = [
             ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
             ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-            ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+            ctypes.c_float, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
         lib.fipm_warp_affine.restype = ctypes.c_int
         lib.fipm_error_string.argtypes = [ctypes.c_int]
         lib.fipm_error_string.restype = ctypes.c_char_p
@@ -63,21 +65,27 @@ def warp_affine_cuda(src: torch.Tensor, inv_mats: torch.Tensor,
     H, W = src.shape
     Ho, Wo = (int(v) for v in out_hw)
     B = inv_mats.shape[0]
-    if not (B <= 65535 and (Ho + 7) // 8 <= 65535
+    if not (B <= 65535 and (Ho + 31) // 32 <= 65535
             and max(H * W, B * Ho * Wo) < 2**31):
         raise ValueError(f"warp of {B}x{Ho}x{Wo} from {H}x{W} exceeds the "
                          "kernel's grid or index range")
     out = torch.empty((B, Ho, Wo), dtype=torch.float32, device=src.device)
     if out.numel() == 0:
         return out
-    lib = _lib()
-    with torch.cuda.device(src.device):
-        stream = torch.cuda.current_stream(src.device).cuda_stream
-        err = lib.fipm_warp_affine(
-            src.data_ptr(), H, W, inv_mats.data_ptr(), B, out.data_ptr(),
-            Ho, Wo, float(border_value), int(bool(quantize)), stream)
+    lib = _LIB or _lib()
+    err = launch.launch(
+        lib.fipm_warp_affine, src.device, src.data_ptr(), H, W,
+        inv_mats.data_ptr(), B, out.data_ptr(), Ho, Wo, float(border_value),
+        int(bool(quantize)),
+        launch.counters("warp_global_blocks", src.device, 1).data_ptr())
     if err != 0:
         raise RuntimeError("warp_affine kernel launch failed: "
                            + lib.fipm_error_string(err).decode())
     LAUNCHES += 1
     return out
+
+
+def global_tap_blocks(reset: bool = False) -> int:
+    """Blocks launched so far whose tap box exceeded the staging buffer and
+    which read their taps from global memory (one host sync)."""
+    return launch.read_counters("warp_global_blocks", 1, reset)[0]

@@ -138,6 +138,69 @@ def test_warp_kernel_matches_plain_on_card(cuda_device, out_hw, B, border):
     assert warp_kernel.LAUNCHES == before + 2
 
 
+def _check_warp_on_card(src, maps, out_hw, border):
+    """Kernel vs plain on the card: quantized bit-equal, unquantized atol
+    5e-3 (see test_warp_kernel_matches_plain_on_card); returns the number
+    of blocks that read their taps from global memory."""
+    warp_kernel.global_tap_blocks(reset=True)
+    for q in (True, False):
+        got = warp_kernel.warp_affine_cuda(src, maps, out_hw, border, q)
+        want = twarp.warp_affine_batch(src, maps, out_hw, border, quantize=q)
+        torch.cuda.synchronize()
+        if q:
+            assert torch.equal(got, want)
+        else:
+            torch.testing.assert_close(got, want, atol=5e-3, rtol=0)
+    return warp_kernel.global_tap_blocks(reset=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("angle", [0.0, 45.0, 90.0])
+def test_warp_kernel_staged_at_angle_on_card(cuda_device, angle):
+    """Level-0 sizes (6 ROIs of 527x768 from 3036x4024), every map at one
+    angle: the staged branch takes every block and matches the plain
+    version."""
+    rng = np.random.default_rng(int(angle) + 1)
+    src = torch.as_tensor(rng.integers(0, 256, (3036, 4024)).astype(
+        np.float32), device=cuda_device)
+    mats = []
+    for x, y in rng.uniform(0, 2500, (6, 2)):
+        m = geometry.rotation_matrix((x + 383.5, y + 263.0), angle)
+        mats.append(geometry.invert_affine(m) @ np.array(
+            [[1.0, 0.0, x], [0.0, 1.0, y], [0.0, 0.0, 1.0]]))
+    maps = torch.as_tensor(np.asarray(mats, np.float32)[:, :2],
+                           device=cuda_device).contiguous()
+    assert _check_warp_on_card(src, maps, (527, 768), 0.0) == 0
+
+
+@pytest.mark.cuda
+def test_warp_kernel_tile_outside_image_on_card(cuda_device):
+    """Maps that put every tile wholly outside the image give the border
+    value everywhere, through the staged branch."""
+    src = torch.as_tensor(np.random.default_rng(5).integers(
+        0, 256, (300, 400)).astype(np.float32), device=cuda_device)
+    maps = torch.tensor([[[0.8, 0.6, -5000.0], [-0.6, 0.8, 40.0]],
+                         [[1.0, 0.0, 30.0], [0.0, 1.0, 9000.5]]],
+                        device=cuda_device)
+    assert _check_warp_on_card(src, maps, (70, 90), 17.0) == 0
+    got = warp_kernel.warp_affine_cuda(src, maps, (70, 90), 17.0, True)
+    assert bool((got == 17.0).all())
+
+
+@pytest.mark.cuda
+def test_warp_kernel_large_footprint_on_card(cuda_device):
+    """General affine maps (scale about 3) exceed the staging buffer: every
+    block reads its taps from global memory, counted, with the same
+    result as the plain version."""
+    src = torch.as_tensor(np.random.default_rng(6).integers(
+        0, 256, (600, 900)).astype(np.float32), device=cuda_device)
+    maps = torch.tensor([[[3.0, 0.4, 10.5], [-0.3, 2.5, 20.25]],
+                         [[-2.7, 1.1, 800.0], [0.9, 2.9, 5.0]]],
+                        device=cuda_device)
+    n_blocks = 2 * 2 * 3 * 5  # two launches, 2 maps of 3x5 full tiles
+    assert _check_warp_on_card(src, maps, (96, 160), 3.0) == n_blocks
+
+
 @pytest.mark.cuda
 def test_tiledband_regime_launches_kernel_on_card(cuda_device):
     """Where the JAX package takes its tiled-band kernel, the card launches
@@ -191,6 +254,32 @@ def test_corr_kernel_matches_plain_on_card(cuda_device, shape):
     bound = ((w + 1) * 2.0**-24 * tncc.ccorr_tiled_ref(Sf.abs(), T.abs())
              .double() + 2.0**-23 * want.double().abs())
     assert bool(((got.double() - want.double()).abs() <= bound).all())
+
+
+@pytest.mark.cuda
+def test_corr_kernel_mixed_blocks_on_card(cuda_device):
+    """One launch over an integer canvas with a fractional patch: the
+    blocks that stage the patch take the f32 path, the others the int8
+    path; outputs whose window misses the patch are bit-equal to the plain
+    version, the others within the f32 path's rounding bound."""
+    rng = np.random.default_rng(21)
+    S = torch.as_tensor(rng.integers(-128, 128, (1, 700, 900)).astype(
+        np.float32), device=cuda_device)
+    S[0, 300:320, 400:440] += 0.5
+    T = torch.as_tensor(rng.integers(-128, 128, (27, 27)).astype(
+        np.float32), device=cuda_device)
+    corr_kernel.path_blocks(reset=True)
+    got = corr_kernel.ccorr_valid_cuda(S, T)
+    want = tncc.ccorr_tiled_ref(S, T)
+    torch.cuda.synchronize()
+    n_int8, n_f32 = corr_kernel.path_blocks(reset=True)
+    assert n_int8 > 0 and 0 < n_f32 < n_int8
+    d = (got.double() - want.double()).abs()
+    bound = (28 * 2.0**-24 * tncc.ccorr_tiled_ref(S.abs(), T.abs())
+             .double() + 2.0**-23 * want.double().abs())
+    assert bool((d <= bound).all())
+    assert bool((d[0, :274, :] == 0).all()) and bool(
+        (d[0, 320:, :] == 0).all())
 
 
 def test_corr_kernel_module_imports_without_nvcc():
