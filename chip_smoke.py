@@ -40,11 +40,30 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      conv and fft routes on each side of the "auto" rule's crossover.
   9. the port on the card against the CPU on a 720x720 many-target scene,
      at tolerance 0 and 30 deg.
+ 10. the flagship as a batch of four frames (the flagship scene, its poses
+     turned 37 and 71 deg, noise alone) through match_many: 3, 3, 3 and 0
+     targets found; each frame equal to its own match(); fewer warp
+     launches per batch than four matches take, every one bit-equal to the
+     plain version at its own inputs; the batched level-0 launch timed
+     against its bound; wall per batch and per frame, stages, profiler.
+ 11. Test7 as a batch of two frames (seeds 7 and 8, one washer): 100 of
+     100 in each, one correlation launch for both, every block int8; each
+     frame equal to its match(); wall, the peak loop's share, profiler.
+ 12. the flagship with two_phase=True equal to one phase (split layer,
+     alive count after phase A, bucket, wall).
+ 13. an OCR plate (36 glyphs of a 5x7 dot-matrix font, tools/ocr_bench.py's
+     scene and configuration) read as "M12X05" by MultiTemplateMatcher,
+     batched and glyph by glyph, with equal matches; both times.
+ 14. a corpus stream (24 frames of 480x640 and a 400x600 straggler, one
+     target each, tools/stream_bench.py's walk, tolerance 15 deg) through
+     inspect_corpus in batches of 8, 8, 8 and 1: the target in every
+     frame within 1 px, every warp launch bit-equal to the plain version.
 The last three lines of output are the kernels' JSON summary, the card's
 name and power limit, and {"ok": true, "device": {...}}. Imports nothing
 of JAX.
 """
 
+import dataclasses
 import json
 import math
 import os
@@ -194,14 +213,15 @@ def washer_template(rng, size=54):
     return np.clip(t, 0, 255).astype(np.uint8)
 
 
-def many_target_scene(size, n, seed=7):
+def many_target_scene(size, n, seed=7, templ=None):
     """The tol=0 many-target scene of tools/suite_bench.py::
     _synthetic_src10 at any size: a size x size source of 235 minus noise
-    in [0, 12) and n non-overlapping washer copies at least 6 px apart.
-    Returns (scene, template, planted centres [(cx, cy)]) in the matcher's
-    centre convention (top-left + (w/2, h/2))."""
+    in [0, 12) and n non-overlapping washer copies at least 6 px apart
+    (the washer drawn from the seed, or `templ`). Returns (scene,
+    template, planted centres [(cx, cy)]) in the matcher's centre
+    convention (top-left + (w/2, h/2))."""
     rng = np.random.default_rng(seed)
-    t = washer_template(rng)
+    t = washer_template(rng) if templ is None else templ
     scene = (np.full((size, size), 235, np.uint8)
              - rng.integers(0, 12, (size, size), dtype=np.uint8))
     th, tw = t.shape
@@ -219,6 +239,143 @@ def many_target_scene(size, n, seed=7):
     if len(placed) != n:
         raise ValueError(f"placed {len(placed)} of {n} targets")
     return scene, t, [(x + tw / 2.0, y + th / 2.0) for y, x in placed]
+
+
+def flagship_batch():
+    """Four flagship-sized frames: the flagship scene; the same template at
+    the flagship poses turned 37 and 71 deg about the image centre (each
+    pose's angle turned as well) on fresh noise; noise alone. Returns
+    (frames [4, 3036, 4024] u8, template, planted (cx, cy, angle) per
+    frame)."""
+    scene, t, truth = flagship_scene()
+    frames, truths = [scene], [truth]
+    oy, ox = (scene.shape[0] - 1) / 2.0, (scene.shape[1] - 1) / 2.0
+    for k, turn in enumerate((37.0, 71.0)):
+        f = np.random.default_rng(43 + k).integers(0, 40, size=scene.shape,
+                                                   dtype=np.uint8)
+        ca, sa = math.cos(math.radians(turn)), math.sin(math.radians(turn))
+        poses = [(ox + (cx - ox) * ca + (cy - oy) * sa,
+                  oy - (cx - ox) * sa + (cy - oy) * ca,
+                  (a + turn + 180.0) % 360.0 - 180.0)
+                 for cx, cy, a in FLAGSHIP_POSES]
+        truths.append([(*_paste_rotated(f, t, cx, cy, a), a)
+                       for cx, cy, a in poses])
+        frames.append(f)
+    frames.append(np.random.default_rng(45).integers(0, 40, size=scene.shape,
+                                                     dtype=np.uint8))
+    truths.append([])
+    return np.stack(frames), t, truths
+
+
+# A 5x7 dot-matrix font of 0-9 and A-Z, one string of 7 rows of 5 columns
+# per glyph ('#' = ink).
+FONT_5X7 = {
+    "0": "01110 10001 10011 10101 11001 10001 01110",
+    "1": "00100 01100 00100 00100 00100 00100 01110",
+    "2": "01110 10001 00001 00010 00100 01000 11111",
+    "3": "11111 00010 00100 00010 00001 10001 01110",
+    "4": "00010 00110 01010 10010 11111 00010 00010",
+    "5": "11111 10000 11110 00001 00001 10001 01110",
+    "6": "00110 01000 10000 11110 10001 10001 01110",
+    "7": "11111 00001 00010 00100 01000 01000 01000",
+    "8": "01110 10001 10001 01110 10001 10001 01110",
+    "9": "01110 10001 10001 01111 00001 00010 01100",
+    "A": "01110 10001 10001 11111 10001 10001 10001",
+    "B": "11110 10001 10001 11110 10001 10001 11110",
+    "C": "01110 10001 10000 10000 10000 10001 01110",
+    "D": "11100 10010 10001 10001 10001 10010 11100",
+    "E": "11111 10000 10000 11110 10000 10000 11111",
+    "F": "11111 10000 10000 11110 10000 10000 10000",
+    "G": "01110 10001 10000 10111 10001 10001 01111",
+    "H": "10001 10001 10001 11111 10001 10001 10001",
+    "I": "01110 00100 00100 00100 00100 00100 01110",
+    "J": "00111 00010 00010 00010 00010 10010 01100",
+    "K": "10001 10010 10100 11000 10100 10010 10001",
+    "L": "10000 10000 10000 10000 10000 10000 11111",
+    "M": "10001 11011 10101 10101 10001 10001 10001",
+    "N": "10001 10001 11001 10101 10011 10001 10001",
+    "O": "01110 10001 10001 10001 10001 10001 01110",
+    "P": "11110 10001 10001 11110 10000 10000 10000",
+    "Q": "01110 10001 10001 10001 10101 10010 01101",
+    "R": "11110 10001 10001 11110 10100 10010 10001",
+    "S": "01111 10000 10000 01110 00001 00001 11110",
+    "T": "11111 00100 00100 00100 00100 00100 00100",
+    "U": "10001 10001 10001 10001 10001 10001 01110",
+    "V": "10001 10001 10001 10001 10001 01010 00100",
+    "W": "10001 10001 10001 10101 10101 10101 01010",
+    "X": "10001 10001 01010 00100 01010 10001 10001",
+    "Y": "10001 10001 10001 01010 00100 00100 00100",
+    "Z": "11111 00001 00010 00100 01000 10000 11111",
+}
+
+
+def glyph(ch, hw=(52, 34)):
+    """Glyph `ch` of FONT_5X7 as a u8 image of hw: dark dots (40) on a
+    light ground (220), each of the 5x7 cells scaled to the image with a
+    one-pixel gap, and a little deterministic texture."""
+    h, w = hw
+    rows = [[c == "1" for c in r] for r in FONT_5X7[ch].split()]
+    yy = np.arange(h) * 7 // h
+    xx = np.arange(w) * 5 // w
+    gap_y = (np.arange(h) * 7 % h) < 7
+    gap_x = (np.arange(w) * 5 % w) < 5
+    ink = np.array(rows)[yy[:, None], xx[None, :]] & ~gap_y[:, None] \
+        & ~gap_x[None, :]
+    texture = np.random.default_rng(ord(ch)).integers(0, 12, (h, w))
+    return np.where(ink, 40 + texture, 220 - texture).astype(np.uint8)
+
+
+def ocr_plate(text="M12X05", hw=(360, 640), glyph_hw=(52, 34), seed=4,
+              x0=40, y0=140):
+    """tools/ocr_bench.py::build_scene with FONT_5X7 glyphs: a plate of
+    background 150-190 with `text` stamped left to right at a pitch of the
+    glyph width + 14 px, each glyph's row jittered by up to 6 px. Returns
+    (plate, [(char, cx, cy)])."""
+    rng = np.random.default_rng(seed)
+    scene = rng.integers(150, 190, hw, dtype=np.uint8)
+    x = x0
+    placed = []
+    for ch in text:
+        g = glyph(ch, glyph_hw)
+        y = y0 + int(rng.integers(-6, 7))
+        scene[y:y + g.shape[0], x:x + g.shape[1]] = g
+        placed.append((ch, x + (g.shape[1] - 1) / 2.0,
+                       y + (g.shape[0] - 1) / 2.0))
+        x += g.shape[1] + 14
+    return scene, placed
+
+
+def ocr_config(fipm):
+    """tools/ocr_bench.py:56-57's configuration."""
+    return fipm.MatchConfig(max_pos=8, score=0.85, tolerance_angle=0.0,
+                            min_reduce_area=256, max_overlap=0.4)
+
+
+def stream_template():
+    """A 60x80 part for the corpus stream: a disc and two blocks broad
+    enough to survive the pyramid's top layer at any sub-cell offset."""
+    t = np.full((60, 80), 110, np.uint8)
+    _disc(t, 24, 28, 17, 230)
+    t[8:52, 48:60] = 20
+    t[40:56, 8:40] = 180
+    return t
+
+
+def stream_frames(templ, n, hw=(480, 640), seed=5):
+    """tools/stream_bench.py::_write_video's frames without the video:
+    noise in [0, 40) and one template per frame at a walk of positions.
+    Returns (frames [n, H, W] u8, centres [(cx, cy)])."""
+    rng = np.random.default_rng(seed)
+    th, tw = templ.shape
+    frames, centres = [], []
+    for i in range(n):
+        f = rng.integers(0, 40, size=hw, dtype=np.uint8)
+        y = int(40 + (i * 7) % (hw[0] - th - 80))
+        x = int(40 + (i * 13) % (hw[1] - tw - 80))
+        f[y:y + th, x:x + tw] = templ
+        frames.append(f)
+        centres.append((x + tw / 2.0, y + th / 2.0))
+    return np.stack(frames), centres
 
 
 def flagship_config(fipm):
@@ -395,14 +552,16 @@ def check_corr(got, want, canv, templ, tag):
     return float(d.max())
 
 
-def grid_sample_call(src, maps, out_hw, border):
+def grid_sample_call(src, maps, out_hw, border, idx=None):
     """The library yardstick of the warp: one F.grid_sample call computing
     the same bilinear BORDER_CONSTANT sample (zero padding of src - border,
-    plus border). Its sampling grid is made here, outside the timed call."""
+    plus border); for a stack of sources, each map's source idx[b] is
+    gathered into the input. Its sampling grid and input are made here,
+    outside the timed call."""
     import torch
     import torch.nn.functional as F
     B = maps.shape[0]
-    H, W = src.shape
+    H, W = src.shape[-2:]
     Ho, Wo = out_hw
     dev = src.device
     y = torch.arange(Ho, device=dev, dtype=torch.float32)[:, None]
@@ -412,7 +571,8 @@ def grid_sample_call(src, maps, out_hw, border):
     fy = m[:, 1, 0] * x + m[:, 1, 1] * y + m[:, 1, 2]
     grid = torch.stack([fx * (2.0 / (W - 1)) - 1.0,
                         fy * (2.0 / (H - 1)) - 1.0], dim=-1)
-    inp = (src - border)[None, None].expand(B, 1, H, W)
+    inp = ((src - border)[None, None].expand(B, 1, H, W) if idx is None
+           else (src - border)[idx.long()][:, None])
     return lambda: F.grid_sample(inp, grid, mode="bilinear",
                                  padding_mode="zeros", align_corners=True)
 
@@ -449,8 +609,10 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"[2 build] ptxas: {line.strip()}")
 
-    warp = flagship_phases(fipm, warp_kernel, dev, smi)
-    corr = many_target_phases(fipm, corr_kernel, warp_kernel, dev, smi)
+    single, warp = flagship_phases(fipm, warp_kernel, dev, smi)
+    many, corr = many_target_phases(fipm, corr_kernel, warp_kernel, dev, smi)
+    warp.update(batch_phases(fipm, warp_kernel, corr_kernel, dev, smi,
+                             single, many))
     print(json.dumps({"kernels": [warp, corr]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
@@ -591,8 +753,9 @@ def flagship_phases(fipm, warp_kernel, dev, smi):
             kl, ll = turns_ms(kern, lib, iters, iters)
             log(f"[3 warp] sweep loop in turns with F.grid_sample: kernel "
                 f"{kl:.4f} ms, F.grid_sample {ll:.4f} ms ({smi})")
-    max_err = max(max_err, main_path_warps(fipm, warp_kernel, W, scene,
-                                           pattern, cfg, dev, plan, smi))
+    d, rows = main_path_warps(fipm, warp_kernel, W, scene, pattern, cfg, dev,
+                              plan, smi)
+    max_err = max(max_err, d)
 
     # Phase 4: the flagship end to end, through the user entry points.
     warp_kernel.LAUNCHES = 0
@@ -622,8 +785,8 @@ def flagship_phases(fipm, warp_kernel, dev, smi):
         if r.score < 0.9 or dist > 2.0 or abs(err_a) > 0.5:
             raise AssertionError("flagship target not recovered")
     run = lambda: fipm.match(scene, pattern, cfg, device=dev)
-    log_walls("[4 flagship]", run, smi)
-    profile_match("[4 flagship]", run, smi)
+    wall = log_walls("[4 flagship]", run, smi)
+    prof = profile_match("[4 flagship]", run, smi)
     stage_ms = stage_times(tm, build_pyramid, scene, pattern, cfg, dev)
     log("[4 flagship] stages ms: " + ", ".join(
         f"{k} {v:.3f}" for k, v in stage_ms.items()) + f" ({smi})")
@@ -636,7 +799,10 @@ def flagship_phases(fipm, warp_kernel, dev, smi):
     card_vs_cpu("[5 card vs cpu]", tm, s_scene, s_pat, s_cfg, dev, 3, 1e-4)
 
     km, pm, lm, bms, by, kdm, ldm = times["L0"]
-    return {
+    single = dict(launches=launches, wall=wall, profile=prof,
+                  l0_ms=[r[2] for r in rows["L0"]], l0_bound_ms=[
+                      r[5] for r in rows["L0"]])
+    return single, {
         "name": "warp_affine",
         "route": "cuda",
         "source": "fastest_image_pattern_matching_tpu_torch/csrc/"
@@ -795,8 +961,8 @@ def many_target_phases(fipm, corr_kernel, warp_kernel, dev, smi):
         f"{min(r.score for r in res):.4f}-{max(r.score for r in res):.4f}, "
         f"centres at most {worst:.3f} px off, angle 0")
     run = lambda: fipm.match(scene, pattern, cfg, device=dev)
-    log_walls("[7 many-target]", run, smi)
-    profile_match("[7 many-target]", run, smi)
+    wall = log_walls("[7 many-target]", run, smi)
+    prof = profile_match("[7 many-target]", run, smi)
     stage_ms = stage_times(tm, build_pyramid, scene, pattern, cfg, dev)
     log("[7 many-target] stages ms: " + ", ".join(
         f"{k} {v:.3f}" for k, v in stage_ms.items()) + f" ({smi})")
@@ -855,7 +1021,8 @@ def many_target_phases(fipm, corr_kernel, warp_kernel, dev, smi):
         if corr_kernel.LAUNCHES <= 0:
             raise AssertionError("no correlation kernel launch")
 
-    return {
+    return dict(wall=wall, profile=prof, peaks_ms=peaks_ms,
+                score_ms=score_ms), {
         "name": "ccorr_valid",
         "route": "cuda",
         "source": "fastest_image_pattern_matching_tpu_torch/csrc/"
@@ -873,6 +1040,371 @@ def many_target_phases(fipm, corr_kernel, warp_kernel, dev, smi):
         "library_loop_ms": lm,
         "fractional_ms": kdm_frac,
     }
+
+
+def same_results(tag, got, want, atol_score, atol_pose):
+    """Result arrays of one frame against another run's: valid masks
+    equal, scores within atol_score, centre and angle of the valid entries
+    within atol_pose. Returns the largest difference of each."""
+    if not np.array_equal(got["valid"], want["valid"]):
+        raise AssertionError(f"{tag}: valid masks differ: {got['valid']} vs "
+                             f"{want['valid']}")
+    v = want["valid"]
+    d = {"score": float(np.abs(got["score"] - want["score"]).max())}
+    for k in ("center", "angle"):
+        d[k] = float(np.abs(got[k][v] - want[k][v]).max()) if v.any() else 0.0
+    if d["score"] > atol_score or max(d["center"], d["angle"]) > atol_pose:
+        raise AssertionError(f"{tag}: results differ, max |d| {d}")
+    return d
+
+
+def check_found(tag, res, truth, dist_px, angle_deg, min_score):
+    """Each planted (cx, cy[, angle]) has a match within dist_px (and
+    angle_deg); no more matches than targets. Returns the worst offset."""
+    if len(res) != len(truth):
+        raise AssertionError(f"{tag}: expected {len(truth)} targets, found "
+                             f"{len(res)}")
+    worst = 0.0
+    for t in truth:
+        r = min(res, key=lambda r: math.hypot(r.center[0] - t[0],
+                                              r.center[1] - t[1]))
+        dist = math.hypot(r.center[0] - t[0], r.center[1] - t[1])
+        err_a = ((r.angle - t[2] + 180.0) % 360.0 - 180.0) if len(t) > 2 \
+            else r.angle
+        worst = max(worst, dist)
+        if r.score < min_score or dist > dist_px or abs(err_a) > angle_deg:
+            raise AssertionError(f"{tag}: target {t} not recovered: score "
+                                 f"{r.score}, {dist} px, angle off {err_a}")
+    return worst
+
+
+def hold_batched_warps(tag, warp_kernel, W, calls):
+    """Every recorded warp launch against the plain version at its own
+    inputs, bit-equal. Returns the number of launches with a stack of
+    sources."""
+    import torch
+    n_stack = 0
+    for args in calls:
+        src, maps, hw, border, quantize = args[:5]
+        idx = args[5] if len(args) > 5 else None
+        n_stack += idx is not None
+        got = warp_kernel.warp_affine_cuda(*args)
+        ref = W.warp_affine_batch(src, maps, hw, border, quantize=quantize,
+                                  src_index=idx)
+        if not torch.equal(got, ref):
+            raise AssertionError(f"{tag}: warp {tuple(maps.shape)} from "
+                                 f"{tuple(src.shape)} differs from the plain "
+                                 f"version, max |d| "
+                                 f"{float((got - ref).abs().max())}")
+    log(f"{tag} {len(calls)} warp launches ({n_stack} on a stack of "
+        "sources) bit-equal to the plain version at their own inputs")
+    return n_stack
+
+
+def warp_bound_stack(src, maps, idx, out_hw):
+    """warp_bound for a stack of sources: the distinct pixels each frame's
+    maps touch, summed over frames, plus the outputs."""
+    B = maps.shape[0]
+    n_src = sum(warp_source_pixels(src.shape[1:], maps[idx == f], out_hw)
+                for f in range(src.shape[0]))
+    n_out = B * out_hw[0] * out_hw[1]
+    return bound_ms(4 * (n_src + n_out + 6 * B + B),
+                    WARP_OPS_PER_PIXEL * n_out, F32_OPS_PER_S)
+
+
+def warp_launch_only(warp_kernel, src, maps, hw, border, quantize, idx):
+    """The warp kernel's launch on a stack of sources, without the
+    wrapper's range check of the index (a host read, which a CUDA graph
+    cannot capture), for timing the device alone on inputs the wrapper
+    has checked. Returns a function that launches into one output."""
+    import torch
+    from fastest_image_pattern_matching_tpu_torch.ops.cuda import launch
+    lib = warp_kernel._lib()
+    out = torch.empty((maps.shape[0],) + tuple(hw), device=src.device)
+    counter = launch.counters("warp_global_blocks", src.device, 1)
+
+    def run():
+        err = launch.launch(
+            lib.fipm_warp_affine, src.device, src.data_ptr(), src.shape[1],
+            src.shape[2], idx.data_ptr(), maps.data_ptr(), maps.shape[0],
+            out.data_ptr(), hw[0], hw[1], float(border), int(quantize),
+            counter.data_ptr())
+        if err:
+            raise RuntimeError(lib.fipm_error_string(err).decode())
+        return out
+    return run
+
+
+def batch_phases(fipm, warp_kernel, corr_kernel, dev, smi, single, many):
+    """Phases 10-14: the flagship as a batch of four frames, Test7 as a
+    batch of two, the two-phase dispatch, the OCR plate and the corpus
+    stream, each through the user entry points on the card. Returns the
+    warp kernel's batched numbers for its entry of the kernels line."""
+    import torch
+    from fastest_image_pattern_matching_tpu_torch.models import (
+        template_matcher as tm)
+    from fastest_image_pattern_matching_tpu_torch.models.multi_template \
+        import read_string
+    from fastest_image_pattern_matching_tpu_torch.ops import ncc
+    from fastest_image_pattern_matching_tpu_torch.ops import warp as W
+    from fastest_image_pattern_matching_tpu_torch.ops.peaks import (
+        extract_peaks)
+    from fastest_image_pattern_matching_tpu_torch.ops.pyramid import (
+        build_pyramid)
+
+    # Phase 10: the flagship as a batch of four frames.
+    frames, templ, truths = flagship_batch()
+    cfg = flagship_config(fipm)
+    pattern = fipm.learn_pattern(templ, 256, device=dev)
+    N = frames.shape[0]
+    fipm.match_many(frames, pattern, cfg, device=dev)
+    warp_kernel.LAUNCHES = 0
+    res = fipm.match_many(frames, pattern, cfg, device=dev)
+    torch.cuda.synchronize()
+    launches = warp_kernel.LAUNCHES
+    log(f"[10 flagship batch] {N} frames: warp kernel launches {launches} "
+        f"per batch, against {single['launches']} per single match "
+        f"({N * single['launches']} for {N} matches)")
+    if not 0 < launches < N * single["launches"]:
+        raise AssertionError("the frames of the batch do not share the warp "
+                             "launches")
+    for i, (r, t) in enumerate(zip(res, truths)):
+        worst = check_found(f"[10 flagship batch] frame {i}", r, t, 2.0, 0.5,
+                            0.9)
+        log(f"[10 flagship batch] frame {i}: {len(r)} matches of {len(t)} "
+            f"planted, centres at most {worst:.3f} px off")
+    batched = fipm.match_many_arrays(frames, pattern, cfg, device=dev)
+    worst = {}
+    for i in range(N):
+        d = same_results(f"[10 flagship batch] frame {i} vs match()",
+                         {k: v[i] for k, v in batched.items()},
+                         tm.match_arrays(frames[i], pattern, cfg, device=dev),
+                         1e-6, 1e-5)
+        worst = {k: max(worst.get(k, 0.0), v) for k, v in d.items()}
+    log(f"[10 flagship batch] each frame equal to its own match() on the "
+        f"card (valid masks; score 1e-6, centre and angle 1e-5): max |d| "
+        f"{worst}")
+    calls = record_calls(warp_kernel, "warp_affine_cuda",
+                         lambda: fipm.match_many(frames, pattern, cfg,
+                                                 device=dev))
+    hold_batched_warps("[10 flagship batch]", warp_kernel, W, calls)
+    l0 = [c for c in calls if len(c) > 5 and c[0].shape[1:] == frames.shape[1:]]
+    batch_l0 = []
+    for args in l0:
+        kern = warp_launch_only(warp_kernel, *args)
+        if not torch.equal(kern(), warp_kernel.warp_affine_cuda(*args)):
+            raise AssertionError("the timed launch differs from the wrapper")
+        bms, by = warp_bound_stack(args[0], args[1], args[5], args[2])
+        src, maps, hw, border, quantize, idx = args
+        plain_ms = cuda_ms(lambda: W.warp_affine_batch(
+            src, maps, hw, border, quantize=quantize, src_index=idx), 3)
+        lib_ms = device_ms(grid_sample_call(src, maps, hw, border, idx), 5,
+                           2)
+        batch_l0.append((device_ms(kern, 10, 3), bms, by,
+                         tuple(maps.shape), plain_ms, lib_ms))
+    for ms, bms, by, shape, plain_ms, lib_ms in batch_l0:
+        log(f"[10 flagship batch] L0 warp {shape[0]}x{l0[0][2][0]}x"
+            f"{l0[0][2][1]} from {N}x{frames.shape[1]}x{frames.shape[2]}: "
+            f"device {ms:.4f} ms, bound {bms:.4f} ms by {by} "
+            f"({100 * bms / ms:.0f}% of bound); plain loop {plain_ms:.4f} "
+            f"ms; F.grid_sample device {lib_ms:.4f} ms; single-frame L0 "
+            f"launch {single['l0_ms']} ms (bound {single['l0_bound_ms']}) "
+            f"({smi})")
+    run = lambda: fipm.match_many(frames, pattern, cfg, device=dev)
+    wall = log_walls("[10 flagship batch]", run, smi)
+    log(f"[10 flagship batch] wall per frame {wall / N:.2f} ms against "
+        f"{single['wall']:.2f} ms for one match() (phase 4) ({smi})")
+    share, events, syncs = profile_match("[10 flagship batch]", run, smi,
+                                         frames=N)
+    log(f"[10 flagship batch] per frame: busy {share:.1f}%, {events:.0f} "
+        f"device events, {syncs:.0f} host copies or syncs; phase 4: busy "
+        f"{single['profile'][0]:.1f}%, {single['profile'][1]:.0f} events, "
+        f"{single['profile'][2]:.0f} syncs")
+    stage_ms = stage_times(tm, build_pyramid, frames, pattern, cfg, dev)
+    log("[10 flagship batch] stages ms per batch: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in stage_ms.items()) + f" ({smi})")
+    scene0 = frames[0]
+    del frames, calls, l0
+    torch.cuda.empty_cache()
+
+    # Phase 12: two-phase against one phase on the flagship.
+    cfg2 = dataclasses.replace(cfg, two_phase=True)
+    one = tm.match_arrays(scene0, pattern, cfg, device=dev)
+    warp_kernel.LAUNCHES = 0
+    two = tm.match_arrays(scene0, pattern, cfg2, device=dev)
+    torch.cuda.synchronize()
+    launches2 = warp_kernel.LAUNCHES
+    if launches2 <= 0:
+        raise AssertionError("[12 two-phase] no warp kernel launch")
+    d = same_results("[12 two-phase]", two, one, 1e-6, 1e-6)
+    plan, stats, args = tm._prepare(scene0, pattern, cfg2, dev)
+    st = tm.build_stages(plan, stats, dev)
+    if st.split is None:
+        raise AssertionError("[12 two-phase] the plan has no split layer")
+    state, _ = st.phase_a(*args)
+    n_alive = int(state[3].sum())
+    log(f"[12 two-phase] split layer {st.split} "
+        f"(template {plan.templ_shapes[st.split]}), n_alive after phase A "
+        f"{n_alive} of {state[3].shape[0]}, bucket "
+        f"{tm._bucket(n_alive, state[3].shape[0])}, warp kernel launches "
+        f"{launches2}; equal to one phase "
+        f"(valid masks; score, centre, angle 1e-6): max |d| {d}")
+    if int(one["valid"].sum()) != 3:
+        raise AssertionError("two-phase scene lost its targets")
+    wall2 = log_walls("[12 two-phase]", lambda: fipm.match(
+        scene0, pattern, cfg2, device=dev), smi)
+    log(f"[12 two-phase] wall {wall2:.2f} ms against {single['wall']:.2f} ms "
+        f"one phase (phase 4) ({smi})")
+    del scene0
+
+    # Phase 11: Test7 as a batch of two frames.
+    s7, t7, truth7 = many_target_scene(3648, 100)
+    s8, _, truth8 = many_target_scene(3648, 100, seed=8, templ=t7)
+    mframes = np.stack([s7, s8])
+    mcfg = many_target_config(fipm, 100)
+    mpat = fipm.learn_pattern(t7, mcfg.min_reduce_area, device=dev)
+    fipm.match_many(mframes, mpat, mcfg, device=dev)
+    corr_kernel.LAUNCHES = 0
+    corr_kernel.path_blocks(reset=True)
+    res = fipm.match_many(mframes, mpat, mcfg, device=dev)
+    torch.cuda.synchronize()
+    n_int8, n_f32 = corr_kernel.path_blocks(reset=True)
+    log(f"[11 many-target batch] 2 frames: correlation kernel launches "
+        f"{corr_kernel.LAUNCHES} (blocks int8 {n_int8}, f32 {n_f32})")
+    if corr_kernel.LAUNCHES != 1 or n_int8 <= 0 or n_f32:
+        raise AssertionError("the two frames did not share one int8 "
+                             "correlation launch")
+    for i, (r, t) in enumerate(zip(res, (truth7, truth8))):
+        worst = check_found(f"[11 many-target batch] frame {i}", r, t, 1.0,
+                            0.0, 0.99)
+        log(f"[11 many-target batch] frame {i}: {len(r)} of {len(t)} "
+            f"washers, centres at most {worst:.3f} px off")
+    batched = fipm.match_many_arrays(mframes, mpat, mcfg, device=dev)
+    for i in range(2):
+        d = same_results(f"[11 many-target batch] frame {i} vs match()",
+                         {k: v[i] for k, v in batched.items()},
+                         tm.match_arrays(mframes[i], mpat, mcfg, device=dev),
+                         1e-6, 1e-5)
+        log(f"[11 many-target batch] frame {i} equal to its match(): max "
+            f"|d| {d}")
+    run = lambda: fipm.match_many(mframes, mpat, mcfg, device=dev)
+    mwall = log_walls("[11 many-target batch]", run, smi)
+    plan = tm._make_plan(mframes.shape[1:], mpat, mcfg)
+    top = plan.top
+    pyr = build_pyramid(torch.as_tensor(mframes, device=dev).float(), top)
+    lv = mpat.levels[top]
+    tt = torch.as_tensor(lv.templ, device=dev)
+    smap = ncc.ncc_score_map(pyr[top], tt, lv.mean, lv.norm, lv.inv_area,
+                             lv.result_equal1)
+    th_t, tw_t = plan.templ_shapes[top]
+    peaks_ms = cuda_ms(lambda: extract_peaks(smap, plan.k_peaks, (tw_t, th_t),
+                                             mcfg.max_overlap), 3)
+    log(f"[11 many-target batch] wall per frame {mwall / 2:.2f} ms against "
+        f"{many['wall']:.2f} ms for one match() (phase 7); peak loop on "
+        f"both maps ({plan.k_peaks} rounds) {peaks_ms:.3f} ms, "
+        f"{100 * peaks_ms / mwall:.0f}% of the batch's wall, against "
+        f"{many['peaks_ms']:.3f} ms for one map ({smi})")
+    share, events, syncs = profile_match("[11 many-target batch]", run, smi,
+                                         frames=2)
+    del mframes, pyr, smap
+    torch.cuda.empty_cache()
+
+    # Phase 13: the OCR plate, 36 glyphs, batched and glyph by glyph.
+    plate, placed = ocr_plate()
+    ocfg = ocr_config(fipm)
+    m = fipm.MultiTemplateMatcher(ocfg, device=dev)
+    for ch in FONT_5X7:
+        m.learn(ch, glyph(ch))
+    m.match_all(plate)
+    warp_kernel.LAUNCHES = corr_kernel.LAUNCHES = 0
+    m.match_all(plate)
+    torch.cuda.synchronize()
+    log(f"[13 ocr] kernel launches of one batched read: warp "
+        f"{warp_kernel.LAUNCHES}, correlation {corr_kernel.LAUNCHES} (tol "
+        f"0: the canvases are the plate itself and the ROIs translated, and "
+        f"the top score map is below the correlation kernel's 65536 "
+        f"outputs)")
+    reads, times = {}, {}
+    for mode, batched_mode in (("batched", True), ("per glyph", False)):
+        m.match_all(plate, batched=batched_mode)
+        ts = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = m.match_all(plate, batched=batched_mode)
+            ts.append((time.perf_counter() - t0) * 1e3)
+        reads[mode], times[mode] = out, statistics.median(ts)
+        text = read_string(out, ocfg.score)
+        log(f"[13 ocr] {mode}: read {text!r}, {len(out)} matches, median "
+            f"{times[mode]:.2f} ms of {[round(t, 2) for t in ts]} ({smi})")
+        if text != "M12X05":
+            raise AssertionError(f"[13 ocr] {mode} read {text!r}")
+    a, b = reads["batched"], reads["per glyph"]
+    if [x.label for x in a] != [x.label for x in b] or any(
+            abs(x.result.score - y.result.score) > 1e-6
+            or abs(x.result.pos_x - y.result.pos_x) > 1e-5
+            or abs(x.result.pos_y - y.result.pos_y) > 1e-5
+            for x, y in zip(a, b)):
+        raise AssertionError("[13 ocr] batched and per-glyph matches differ")
+    log(f"[13 ocr] batched labels, scores and centres equal to per glyph; "
+        f"{len(FONT_5X7)} glyphs of {glyph('0').shape} on {plate.shape}: "
+        f"batched {times['batched']:.2f} ms, per glyph "
+        f"{times['per glyph']:.2f} ms ({smi})")
+
+    # Phase 14: the corpus stream, 24 frames and a straggler of another
+    # shape, in batches of 8.
+    stpl = stream_template()
+    sframes, centres = stream_frames(stpl, 24)
+    straggler, s_centre = stream_frames(stpl, 1, hw=(400, 600), seed=6)
+    corpus = list(sframes) + [straggler[0]]
+    centres = centres + s_centre
+    scfg = fipm.MatchConfig(max_pos=1, score=0.6, tolerance_angle=15.0)
+    spat = fipm.learn_pattern(stpl, 256, device=dev)
+    from fastest_image_pattern_matching_tpu_torch.models import corpus as cp
+    list(fipm.inspect_corpus(corpus, spat, scfg, batch_size=8, device=dev))
+    sizes = []
+    orig = cp.match_many_arrays
+
+    def counted(srcs, *a, **k):
+        sizes.append(len(srcs))
+        return orig(srcs, *a, **k)
+
+    cp.match_many_arrays = counted
+    try:
+        calls = record_calls(warp_kernel, "warp_affine_cuda", lambda: list(
+            fipm.inspect_corpus(corpus, spat, scfg, batch_size=8,
+                                device=dev)))
+    finally:
+        cp.match_many_arrays = orig
+    n_stack = hold_batched_warps("[14 corpus]", warp_kernel, W, calls)
+    if sizes != [8, 8, 8, 1] or not n_stack:
+        raise AssertionError(f"[14 corpus] batches {sizes}, {n_stack} "
+                             "launches on a stack of sources")
+    warp_kernel.LAUNCHES = 0
+    reports = list(fipm.inspect_corpus(corpus, spat, scfg, batch_size=8,
+                                       device=dev))
+    torch.cuda.synchronize()
+    if warp_kernel.LAUNCHES <= 0:
+        raise AssertionError("[14 corpus] no warp kernel launch")
+    if [r.index for r in reports] != list(range(len(corpus))):
+        raise AssertionError("[14 corpus] reports out of order")
+    worst = max(check_found(f"[14 corpus] frame {r.index}", r.results,
+                            [c], 1.0, 1.0, 0.6)
+                for r, c in zip(reports, centres))
+    ms = [r.execution_ms for r in reports]
+    log(f"[14 corpus] {len(corpus)} frames in batches {sizes}, warp kernel "
+        f"launches {warp_kernel.LAUNCHES}: target found "
+        f"in every frame, at most {worst:.3f} px off; ms per frame "
+        f"{[round(v, 3) for v in sorted(set(ms), key=ms.index)]} (batches "
+        f"of 8, 8, 8, then the {straggler.shape[1]}x{straggler.shape[2]} "
+        f"straggler alone) ({smi})")
+
+    return {"batch_launches": launches,
+            "batch_l0_ms": [r[0] for r in batch_l0],
+            "batch_l0_bound_ms": [r[1] for r in batch_l0],
+            "batch_l0_plain_ms": [r[4] for r in batch_l0],
+            "batch_l0_library_ms": [r[5] for r in batch_l0],
+            "batch_l0_shapes": [list(r[3]) for r in batch_l0]}
 
 
 def record_calls(module, name, run):
@@ -944,14 +1476,16 @@ def main_path_warps(fipm, warp_kernel, W, scene, pattern, cfg, dev, plan,
             f"({100 * loss[tag] / total:.0f}%) ({smi})")
     log(f"[3 warp] main path: {len(calls)} launches held against the plain "
         f"version, max |d| {max_err}")
-    return max_err
+    return max_err, rows
 
 
-def profile_match(tag, run, smi, runs=3):
+def profile_match(tag, run, smi, runs=3, frames=1):
     """torch.profiler over `runs` calls of one end-to-end path after its
     warm-up: the device's busy share of the wall time (union of the device
     intervals of kernels, copies and fills), device events and host copies
-    or syncs per match, and the largest device consumers."""
+    or syncs per frame (a call matches `frames` frames), and the largest
+    device consumers. Returns (busy share %, device events per frame, host
+    copies or syncs per frame)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -985,15 +1519,22 @@ def profile_match(tag, run, smi, runs=3):
                 if e.device_type == DeviceType.CPU
                 and e.name in ("cudaStreamSynchronize", "cudaDeviceSynchronize",
                                "cudaMemcpyAsync"))
-    log(f"{tag} profile of {runs} matches: wall {wall_us / 1e3:.2f} ms, "
-        f"device busy {busy / 1e3:.2f} ms ({100.0 * busy / wall_us:.1f}% of "
-        f"the wall, idle {100.0 - 100.0 * busy / wall_us:.1f}%), "
-        f"{len(spans) / runs:.0f} device events and {syncs / runs:.0f} host "
-        f"copies or syncs per match ({smi})")
+    per = runs * frames
+    share = 100.0 * busy / wall_us
+    log(f"{tag} profile of {runs} calls of {frames} frame(s): wall "
+        f"{wall_us / 1e3:.2f} ms, device busy {busy / 1e3:.2f} ms "
+        f"({share:.1f}% of the wall, idle {100.0 - share:.1f}%), "
+        f"{len(spans) / per:.0f} device events and {syncs / per:.0f} host "
+        f"copies or syncs per frame ({smi})")
     total = sum(by_name.values()) or 1.0
     for k, v in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
-        log(f"{tag}   {100.0 * v / total:5.1f}% {v / runs / 1e3:.3f} "
-            f"ms/match  {k[:80]}")
+        log(f"{tag}   {100.0 * v / total:5.1f}% {v / per / 1e3:.3f} "
+            f"ms/frame  {k[:80]}")
+    host = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
+    log(f"{tag} host time by op (self, ms/frame, calls/frame): " + "; ".join(
+        f"{e.key[:40]} {e.self_cpu_time_total / per / 1e3:.3f} "
+        f"{e.count / per:.0f}" for e in host[:8]))
+    return share, len(spans) / per, syncs / per
 
 
 def log_walls(tag, run, smi, n=5):
@@ -1006,9 +1547,10 @@ def log_walls(tag, run, smi, n=5):
         run()
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
+    med = statistics.median(walls)
     log(f"{tag} wall ms (host array in, {n} runs after warm-up): median "
-        f"{statistics.median(walls):.2f}, all "
-        f"{[round(w, 2) for w in walls]} ({smi})")
+        f"{med:.2f}, all {[round(w, 2) for w in walls]} ({smi})")
+    return med
 
 
 def card_vs_cpu(tag, tm, scene, pattern, cfg, dev, n_targets, score_atol):
@@ -1032,10 +1574,16 @@ def card_vs_cpu(tag, tm, scene, pattern, cfg, dev, n_targets, score_atol):
 
 
 def stage_times(tm, build_pyramid, scene, pattern, cfg, dev):
-    """Per-stage CUDA-event times of one match, composed from the same
-    stage functions match() runs."""
+    """Per-stage CUDA-event times of one call, composed from the same
+    stage functions match() and match_many() run; `scene` is one image or
+    a stack of frames [N, H, W]."""
     import torch
-    plan, stats, args = tm._prepare(scene, pattern, cfg, dev)
+    from fastest_image_pattern_matching_tpu_torch.models import batch
+    if scene.ndim == 3:
+        plan, stats, args = batch._prepare_batch(scene, pattern, cfg, None,
+                                                 dev)
+    else:
+        plan, stats, args = tm._prepare(scene, pattern, cfg, dev)
     st = tm.build_stages(plan, stats, dev)
     src, templs, inv_mats, trans, valid_wh, angles = args
     marks = []
@@ -1053,14 +1601,15 @@ def stage_times(tm, build_pyramid, scene, pattern, cfg, dev):
                                valid_wh)
     mark("sweep")
     pt, ang, score, alive = st.select_candidates(vals, locs, trans, angles)
-    ptLT = st.unrotate(pt, ang)
+    ptLT, ang, fidx = st.unrotate(pt, ang)
+    score, alive = score.reshape(-1), alive.reshape(-1)
     mark("select")
     for l in range(plan.top - 1, plan.stop - 1, -1):
-        ptLT, ang, score, alive = st.descend_range(
-            pyr, templs, ptLT, ang, score, alive, l, l)
+        ptLT, ang, score, alive, fidx = st.descend_range(
+            pyr, templs, ptLT, ang, score, alive, fidx, l, l)
         mark(f"descend_L{l}")
     scale = 1.0 if plan.stop == 0 else 2.0
-    st.finalize(ptLT * scale, ang, score, alive)
+    st.finalize(ptLT * scale, ang, score, alive, fidx, src.shape[0])
     mark("finalize")
     torch.cuda.synchronize()
     return {name: prev.elapsed_time(e)

@@ -7,7 +7,9 @@ refinement, greedy multi-target peak extraction and rotated-rect NMS. The
 public functions take an explicit `device` (CUDA by default). On a CUDA
 device every warp runs the hand-written kernel in csrc/warp_affine.cu and
 every large-map correlation (tol=0 many-target scenes, match_template) the
-one in csrc/ccorr_valid.cu.
+one in csrc/ccorr_valid.cu. Batches of frames (match_many, BatchMatcher,
+inspect_corpus) run through the same pipeline with frames as its leading
+axis; glyph sets through match_patterns and MultiTemplateMatcher.
 
 The pyramid and the top-layer correlation are exact in f32 only without
 TF32, so importing the package turns TF32 off for matmuls and cuDNN.
@@ -23,9 +25,15 @@ from .types import LearnedPattern, MatchResult
 from .models.template_matcher import (TemplateMatcher, learn_pattern, match,
                                       match_arrays, match_candidates,
                                       match_template, pattern_from_reference)
+from .models.batch import (BatchMatcher, match_many, match_many_arrays,
+                           match_patterns)
+from .models.multi_template import MultiTemplateMatcher
+from .models.corpus import inspect_corpus
 
 __all__ = [
     "MatchConfig", "LearnedPattern", "MatchResult", "TemplateMatcher",
     "learn_pattern", "match", "match_arrays", "match_candidates",
-    "match_template", "pattern_from_reference",
+    "match_template", "pattern_from_reference", "BatchMatcher",
+    "match_many", "match_many_arrays", "match_patterns",
+    "MultiTemplateMatcher", "inspect_corpus",
 ]

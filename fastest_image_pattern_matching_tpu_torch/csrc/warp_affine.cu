@@ -7,6 +7,9 @@
 // staged copy of the source in shared memory.
 //
 // out[b, y, x] = bilinear sample of src [H, W] at inv_mats[b] @ (x, y, 1),
+// or, for a stack of sources [N, H, W] with a source index idx [B], of
+// source idx[b] (frames of a batch share one launch; block z reads
+// src + idx[z] * H * W, an offset taken in 64 bits),
 // with cv::warpAffine BORDER_CONSTANT semantics: each of the four taps is
 // replaced by `border` outside the image, so pixels at the image edge blend
 // partial taps with the border value. With `quantize` the result is
@@ -54,10 +57,11 @@
 // flagship's level-0 descent (24 maps of 527x768 from 3036x4024) that is
 // 18.2 us at 3.35 TB/s. The staged block reads its box once (1.1x its
 // output area near 0 and 90 deg, 2.2x near 45 deg, from L2: the 49 MB
-// level-0 source fits the 50 MB L2), so the taps no longer cost one
-// 32-byte sector per lane when a warp's lanes sample 32 different source
-// rows (near 90 deg), and each thread's 8 outputs share one box
-// computation. What is left above the bound is the staging of the box:
+// level-0 source fits the 50 MB L2; the level-0 sources of a batch of
+// several frames do not, and their boxes come from HBM), so the taps no
+// longer cost one 32-byte sector per lane when a warp's lanes sample 32
+// different source rows (near 90 deg), and each thread's 8 outputs share
+// one box computation. What is left above the bound is the staging of the box:
 // near 45 deg half of it lies outside the rotated footprint, and every
 // staged pixel costs an instruction and a shared-memory store (PERF.md
 // has the times by angle).
@@ -124,11 +128,16 @@ __device__ __forceinline__ void cp_async16(float* dst, const float* src) {
 }
 
 __global__ void __launch_bounds__(kThreads)
-warp_affine_kernel(const float* __restrict__ src, int H, int W,
+warp_affine_kernel(const float* __restrict__ srcs, int H, int W,
+                   const int* __restrict__ src_idx,
                    const float* __restrict__ mats, float* __restrict__ out,
                    int Ho, int Wo, float border, int quantize, int vec_load,
                    int vec_store, int* __restrict__ global_blocks) {
   __shared__ __align__(16) float stage[kStage];
+  const float* __restrict__ src =
+      src_idx == nullptr
+          ? srcs
+          : srcs + static_cast<size_t>(src_idx[blockIdx.z]) * H * W;
   const int tid = threadIdx.x;
   const int tx0 = blockIdx.x * kTile;
   const int ty0 = blockIdx.y * kTile;
@@ -253,16 +262,20 @@ warp_affine_kernel(const float* __restrict__ src, int H, int W,
 
 extern "C" {
 
-// src [H, W] f32, mats [B, 2, 3] f32, out [B, Ho, Wo] f32, all contiguous on
-// the current device, out 16-byte aligned. global_blocks: a device int that
-// counts the blocks that read their taps from global memory, or null.
-// Launches on `stream` and returns cudaGetLastError().
-int fipm_warp_affine(const float* src, int H, int W, const float* mats, int B,
-                     float* out, int Ho, int Wo, float border, int quantize,
-                     int* global_blocks, void* stream) {
+// src [H, W] f32 (src_idx null) or [N, H, W] f32 with src_idx [B] int32,
+// every entry in [0, N); mats [B, 2, 3] f32, out [B, Ho, Wo] f32, all
+// contiguous on the current device, out 16-byte aligned. global_blocks: a
+// device int that counts the blocks that read their taps from global
+// memory, or null. Launches on `stream` and returns cudaGetLastError().
+int fipm_warp_affine(const float* src, int H, int W, const int* src_idx,
+                     const float* mats, int B, float* out, int Ho, int Wo,
+                     float border, int quantize, int* global_blocks,
+                     void* stream) {
   const dim3 grid((Wo + kTile - 1) / kTile, (Ho + kTile - 1) / kTile, B);
+  // Every source of a stack starts 16-byte aligned when the first does and
+  // W % 4 == 0 (then H * W % 4 == 0).
   warp_affine_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      src, H, W, mats, out, Ho, Wo, border, quantize,
+      src, H, W, src_idx, mats, out, Ho, Wo, border, quantize,
       W % 4 == 0 && reinterpret_cast<uintptr_t>(src) % 16 == 0 ? 1 : 0,
       Wo % kVec == 0 ? 1 : 0, global_blocks);
   return static_cast<int>(cudaGetLastError());

@@ -1,0 +1,71 @@
+"""Corpus inspection: frames -> batched matcher -> one report per frame —
+the port of fastest_image_pattern_matching_tpu/models/corpus.py.
+
+Equal-shaped frames are batched through models/batch.py (the frames of a
+batch share the pipeline's launches); a frame of another shape ends the
+current batch and starts its own. The JAX package's `mesh` argument (the
+sharded matcher) has no counterpart until the port has its multi-GPU
+path, so there is none here.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Iterable, Iterator, List, Optional
+
+import numpy as np
+
+from ..config import MatchConfig
+from ..types import LearnedPattern, MatchResult
+from ..utils.device import resolve_device
+from .batch import _next_bucket, _results_from_arrays, match_many_arrays
+
+
+@dataclasses.dataclass
+class FrameReport:
+    index: int
+    results: List[MatchResult]
+    execution_ms: float
+
+
+def inspect_corpus(
+    frames: Iterable[np.ndarray],
+    pattern: LearnedPattern,
+    cfg: Optional[MatchConfig] = None,
+    batch_size: int = 8,
+    device=None,
+) -> Iterator[FrameReport]:
+    """Yield a FrameReport per frame, in order.
+
+    Equal-shaped frames are grouped into batches of batch_size, each
+    matched as one batch; an odd-shaped straggler forms its own (smaller)
+    batch. execution_ms is the batch's wall time divided by its frames.
+    """
+    cfg = cfg or MatchConfig()
+    dev = resolve_device(device)
+    buf: List[np.ndarray] = []
+    idx: List[int] = []
+
+    def flush():
+        nonlocal buf, idx
+        if not buf:
+            return
+        t0 = time.perf_counter()
+        out = match_many_arrays(
+            np.stack(buf), pattern, cfg,
+            batch_bucket=min(batch_size, _next_bucket(len(buf))), device=dev)
+        ms = (time.perf_counter() - t0) * 1000 / len(buf)
+        for k, i in enumerate(idx):
+            yield FrameReport(i, _results_from_arrays(out, k, pattern), ms)
+        buf, idx = [], []
+
+    cur_shape = None
+    for i, frame in enumerate(frames):
+        if cur_shape is not None and (frame.shape != cur_shape
+                                      or len(buf) >= batch_size):
+            yield from flush()
+        cur_shape = frame.shape
+        buf.append(frame)
+        idx.append(i)
+    yield from flush()

@@ -18,7 +18,7 @@ The raw correlation ccorr_c takes one of four routes, chosen by the JAX
 package's rule (`ncc_score_map`, method "auto"), kept so that the port
 takes the route JAX takes; its conv/fft crossover is the JAX package's
 operation-count estimate, not a crossover measured on the card (PERF.md):
-  * shiftmm: one f32 matmul against all shifted template copies, for the
+  * shiftmm: one f64 matmul against all shifted template copies, for the
     7x7 descent maps (Ho*Wo <= 512);
   * tiled: large maps with small templates (Ho*Wo > 65536, 2 <= w <= 129,
     h <= 64), where the JAX package runs its Pallas tiled-band kernel. CUDA
@@ -85,17 +85,23 @@ def ccorr_conv(canvases_c: torch.Tensor, templ_c: torch.Tensor
 def ccorr_shiftmm(canvases_c: torch.Tensor, templ_c: torch.Tensor
                   ) -> torch.Tensor:
     """Centred cross-correlation for small output grids as one matmul:
-    score[b, s] = <roi[b], template shifted by s>, over all Ho*Wo shifts."""
+    score[b, s] = <roi[b], template shifted by s>, over all Ho*Wo shifts.
+
+    The matmul runs in f64 and is rounded to f32 once: exact on integer
+    inputs (every sum below 2^53), so a candidate's score does not depend
+    on how many ROIs share the matmul, whose f32 summation order on the
+    card follows its shape (the batch of frames and the two-phase bucket
+    change that)."""
     B, H, W = canvases_c.shape
     h, w = templ_c.shape
     Ho, Wo = H - h + 1, W - w + 1
-    tsh = canvases_c.new_zeros((Ho * Wo, H, W))
+    tsh = canvases_c.new_zeros((Ho * Wo, H, W), dtype=torch.float64)
     for dy in range(Ho):
         for dx in range(Wo):
             tsh[dy * Wo + dx, dy:dy + h, dx:dx + w] = templ_c
-    out = torch.matmul(canvases_c.reshape(B, H * W),
+    out = torch.matmul(canvases_c.reshape(B, H * W).to(torch.float64),
                        tsh.reshape(Ho * Wo, H * W).T)
-    return out.reshape(B, Ho, Wo)
+    return out.reshape(B, Ho, Wo).to(torch.float32)
 
 
 # The plain version of the correlation kernel is the exact conv route.

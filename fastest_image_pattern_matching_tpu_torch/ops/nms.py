@@ -107,47 +107,65 @@ def rotated_rect_corners(pt_lt: torch.Tensor, angle_deg: torch.Tensor,
 
 
 def filter_overlaps(
-    quads: torch.Tensor,    # [C, 4, 2] score-sorted (desc) candidate rects
-    valid: torch.Tensor,    # [C] bool
+    quads: torch.Tensor,    # [C, 4, 2] or [N, C, 4, 2], each row score-sorted
+    valid: torch.Tensor,    # [C] or [N, C] bool
     templ_area: float,
     max_overlap: float,
 ) -> torch.Tensor:
-    """Greedy suppression; returns the surviving-candidate mask [C].
+    """Greedy suppression; returns the surviving-candidate mask [C] (or
+    [N, C]: each of N frames on its own).
 
-    For each surviving i in score order, every later j whose intersection
-    with i is full containment or has area ratio (vs the template area)
-    > max_overlap is deleted. An invalid candidate never survives and never
-    deletes, so pair areas are computed among the valid ones only (one host
-    sync to find them).
+    For each surviving i in score order, every later j of the same frame
+    whose intersection with i is full containment or has area ratio (vs
+    the template area) > max_overlap is deleted. An invalid candidate
+    never survives and never deletes, so pair areas are computed among the
+    valid ones of each frame only (one host sync to count them), and the
+    greedy rounds run for all frames at once (one host sync a round).
+    f32 quads compare in f32 like the JAX package; f64 quads (the
+    cross-template NMS of models/multi_template.py) in f64 like the C++
+    greedy of the JAX package's native library.
     """
-    C = quads.shape[0]
-    keep = torch.zeros(C, dtype=torch.bool, device=quads.device)
-    vidx = torch.nonzero(valid).flatten()
-    n = vidx.numel()
+    if quads.ndim == 3:
+        return filter_overlaps(quads[None], valid[None], templ_area,
+                               max_overlap)[0]
+    N, C = valid.shape
+    dev = quads.device
+    keep = torch.zeros((N, C), dtype=torch.bool, device=dev)
+    n_valid = valid.sum(dim=1)
+    n = int(n_valid.max()) if N else 0
     if n == 0:
         return keep
-    q = quads[vidx]
+    # The valid candidates of each frame first, in order; slots past a
+    # frame's count hold invalid ones and take no part.
+    order = torch.sort((~valid).to(torch.int8), dim=1, stable=True
+                       ).indices[:, :n]
+    slot = torch.arange(n, device=dev)
+    used = slot[None, :] < n_valid[:, None]
+    q = torch.gather(quads, 1, order[:, :, None, None].expand(N, n, 4, 2))
     rows = []
     for lo in range(0, n, _ROW_CHUNK):
-        qa = q[lo:lo + _ROW_CHUNK]
-        r = qa.shape[0]
-        qa_p = qa[:, None].expand(r, n, 4, 2).reshape(r * n, 4, 2)
-        qb_p = q[None].expand(r, n, 4, 2).reshape(r * n, 4, 2)
-        rows.append(quad_intersection_area(qa_p, qb_p).reshape(r, n))
-    pair_area = torch.cat(rows, dim=0)  # [i, j]: quad i clipped by quad j
-    contain = pair_area >= f32(templ_area * (1.0 - 1e-6))
-    conflict = contain | (pair_area / f32(templ_area) > f32(max_overlap))
+        qa = q[:, lo:lo + _ROW_CHUNK]
+        r = qa.shape[1]
+        qa_p = qa[:, :, None].expand(N, r, n, 4, 2).reshape(N * r * n, 4, 2)
+        qb_p = q[:, None].expand(N, r, n, 4, 2).reshape(N * r * n, 4, 2)
+        rows.append(quad_intersection_area(qa_p, qb_p).reshape(N, r, n))
+    pair_area = torch.cat(rows, dim=1)  # [f, i, j]: quad i clipped by quad j
+    rnd = f32 if quads.dtype == torch.float32 else float
+    contain = pair_area >= rnd(templ_area * (1.0 - 1e-6))
+    conflict = contain | (pair_area / rnd(templ_area) > rnd(max_overlap))
 
-    ar = torch.arange(n, device=quads.device)
-    earlier = conflict & (ar[:, None] < ar[None, :])  # [i, j]: i kills j
-    decided = torch.zeros(n, dtype=torch.bool, device=quads.device)
-    alive = torch.ones(n, dtype=torch.bool, device=quads.device)
-    # Each round decides at least the first undecided candidate; in
-    # practice the loop ends in the conflict-chain depth (2-5 rounds).
+    # [f, i, j]: i kills j
+    earlier = (conflict & (slot[:, None] < slot[None, :])
+               & used[:, :, None] & used[:, None, :])
+    decided = ~used
+    alive = used.clone()
+    # Each round decides at least the first undecided candidate of every
+    # frame; in practice the loop ends in the conflict-chain depth (2-5
+    # rounds).
     while not bool(decided.all()):
-        ready = torch.all(~earlier | decided[:, None], dim=0)
-        killed = torch.any(earlier & (alive & decided)[:, None], dim=0)
+        ready = torch.all(~earlier | decided[:, :, None], dim=1)
+        killed = torch.any(earlier & (alive & decided)[:, :, None], dim=1)
         alive = torch.where(ready & ~decided, ~killed, alive)
         decided = decided | ready
-    keep[vidx] = alive
+    keep.scatter_(1, order, alive)
     return keep

@@ -30,19 +30,22 @@ def _reflect101_index(n: int, device) -> torch.Tensor:
 
 
 def pyr_down(img: torch.Tensor) -> torch.Tensor:
-    """One cv::pyrDown step on a 2D u8-valued f32 image; returns a u8-valued
-    f32 image of shape ((h+1)//2, (w+1)//2)."""
-    h, w = img.shape
+    """One cv::pyrDown step on a u8-valued f32 image [h, w] or stack of
+    images [N, h, w] (one convolution for the stack); returns u8-valued
+    f32 of shape [..., (h+1)//2, (w+1)//2]."""
+    h, w = img.shape[-2:]
     x = img.to(torch.float32)
-    x = x.index_select(0, _reflect101_index(h, x.device))
-    x = x.index_select(1, _reflect101_index(w, x.device))
+    x = x.index_select(-2, _reflect101_index(h, x.device))
+    x = x.index_select(-1, _reflect101_index(w, x.device))
     k = torch.as_tensor(_KERNEL_2D, device=x.device)[None, None]
-    out = F.conv2d(x[None, None], k, stride=2)[0, 0]
+    out = F.conv2d(x.reshape(-1, 1, h + 4, w + 4), k, stride=2)
+    out = out.reshape(*img.shape[:-2], *out.shape[-2:])
     return torch.floor((out + 128.0) / 256.0)
 
 
 def build_pyramid(img: torch.Tensor, levels: int) -> List[torch.Tensor]:
-    """cv::buildPyramid: [level0, ..., level_levels] as u8-valued f32."""
+    """cv::buildPyramid of an image [H, W] or stack [N, H, W]: [level0,
+    ..., level_levels] as u8-valued f32."""
     out = [img.to(torch.float32)]
     for _ in range(levels):
         out.append(pyr_down(out[-1]))

@@ -40,8 +40,13 @@ def subpixel_refine(patches: torch.Tensor, step_rad: float) -> torch.Tensor:
     Degenerate fits (|det| <= 1e-20) give a zero offset, never NaN.
     """
     s = patches.reshape(*patches.shape[:-3], 27)
+    # The 27-term fit as f64 sums of the exact f32 products, rounded to
+    # f32 once: an f32 matmul's summation order, hence its last bits,
+    # depends on how many fits it computes together on the card (a batch
+    # of frames fits more candidates in one call), and an ill-conditioned
+    # fit moves the stationary point by up to 1e-3 px for one ulp.
     pinv = torch.as_tensor(_PINV, device=patches.device)
-    z = s @ pinv.T
+    z = (s.to(torch.float64) @ pinv.to(torch.float64).T).to(torch.float32)
     k0, k1, k2, k3, k4, k5, k6, k7, k8 = (z[..., i] for i in range(9))
 
     # Solve [2k0 k3 k4; k3 2k1 k5; k4 k5 2k2] d = -[k6 k7 k8]

@@ -19,7 +19,7 @@ JAX reference on the CPU agree bit for bit on the same maps.
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -27,21 +27,26 @@ from .rounding import cos_sin, f32, fma
 
 
 def warp_affine_batch(
-    src: torch.Tensor,            # [H, W] f32
+    src: torch.Tensor,            # [H, W] or [N, H, W] f32
     inv_mats: torch.Tensor,       # [A, 2, 3] f32 (dst->src affine)
     out_hw: Tuple[int, int],
     border_value: float,
     quantize: bool = True,
     fixed_point_frac: bool = False,
+    src_index: Optional[torch.Tensor] = None,   # [A] int, with [N, H, W]
 ) -> torch.Tensor:
     """Bilinear-sample `src` at A affine grids -> [A, Ho, Wo] f32.
 
-    `quantize` rounds to integers (half to even), emulating the
-    reference's u8 warped mats. fixed_point_frac emulates OpenCV <= 4.x's
-    10-bit fixed-point coordinate path (AB_BITS=10/INTER_BITS=5); the
-    default uses exact float coordinates like OpenCV 5.
+    A stack of sources [N, H, W] needs `src_index`: map a samples source
+    src_index[a]. `quantize` rounds to integers (half to even), emulating
+    the reference's u8 warped mats. fixed_point_frac emulates OpenCV <=
+    4.x's 10-bit fixed-point coordinate path (AB_BITS=10/INTER_BITS=5);
+    the default uses exact float coordinates like OpenCV 5.
     """
-    H, W = src.shape
+    if (src.ndim == 3) != (src_index is not None):
+        raise ValueError("a source stack [N, H, W] takes a src_index, a "
+                         "single source [H, W] none")
+    H, W = src.shape[-2:]
     Ho, Wo = out_hw
     dev = src.device
     xs = torch.arange(Wo, dtype=torch.float32, device=dev)[None, :].expand(
@@ -81,10 +86,12 @@ def warp_affine_batch(
 
     border = f32(border_value)
     flat = src.reshape(-1)
+    base = 0 if src_index is None else (
+        src_index.to(torch.int64) * (H * W))[:, None, None]
 
     def tap(yi, xi):
         inb = (xi >= 0) & (xi < W) & (yi >= 0) & (yi < H)
-        v = flat[yi.clamp(0, H - 1) * W + xi.clamp(0, W - 1)]
+        v = flat[base + yi.clamp(0, H - 1) * W + xi.clamp(0, W - 1)]
         return torch.where(inb, v, border)
 
     v00 = tap(y0, x0)
@@ -106,15 +113,23 @@ def warp_affine_dispatch(
     out_hw: Tuple[int, int],
     border_value: float,
     quantize: bool = True,
+    src_index: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """The warp of the main path: the hand-written CUDA kernel for tensors
-    on the card, the plain gather above for tensors on the CPU."""
+    on the card, the plain gather above for tensors on the CPU. Takes the
+    arguments of warp_affine_batch; a stack of one source goes to the
+    single-source form."""
+    if src.ndim == 3 and src.shape[0] == 1 and src_index is not None:
+        src, src_index = src[0], None
     if src.device.type == "cpu" and inv_mats.device.type == "cpu":
         return warp_affine_batch(src, inv_mats, out_hw, border_value,
-                                 quantize=quantize)
+                                 quantize=quantize, src_index=src_index)
     from .cuda.warp_kernel import warp_affine_cuda
+    if src_index is None:
+        return warp_affine_cuda(src, inv_mats, out_hw, float(border_value),
+                                quantize)
     return warp_affine_cuda(src, inv_mats, out_hw, float(border_value),
-                            quantize)
+                            quantize, src_index.to(torch.int32))
 
 
 def rotate_pt(pt: torch.Tensor, org, angle_rad) -> torch.Tensor:

@@ -39,14 +39,17 @@ def chunked_map(fn, xs, n: int, chunk: int, pred=None):
     def call(lo, hi):
         return tuple(fn(tuple(x[lo:hi] for x in xs)))
 
-    outs = [call(lo, hi) if alive else None
-            for (lo, hi), alive in zip(bounds, run)]
-    ref = next((o for o in outs if o is not None), None)
-    if ref is None:
-        ref = tuple(torch.zeros_like(y) for y in call(*bounds[0]))
-        outs[0] = ref
-    outs = [o if o is not None else
-            tuple(y.new_zeros((hi - lo,) + y.shape[1:]) for y in ref)
-            for o, (lo, hi) in zip(outs, bounds)]
-    return tuple(torch.cat([o[k] for o in outs], dim=0)
-                 for k in range(len(ref)))
+    if all(run):
+        outs = [call(lo, hi) for lo, hi in bounds]
+        return tuple(torch.cat([o[k] for o in outs], dim=0)
+                     for k in range(len(outs[0])))
+    # Dead chunks cost nothing: the outputs start as zeros (one fill each,
+    # however many chunks are dead) and the alive chunks are copied in.
+    alive = [(lo, hi, call(lo, hi))
+             for (lo, hi), a in zip(bounds, run) if a]
+    ref = alive[0][2] if alive else call(*bounds[0])
+    full = tuple(y.new_zeros((n,) + y.shape[1:]) for y in ref)
+    for lo, hi, o in alive:
+        for f, y in zip(full, o):
+            f[lo:hi] = y
+    return full

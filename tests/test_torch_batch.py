@@ -1,0 +1,309 @@
+"""The port's batched serving path against the JAX package on the CPU:
+match_many_arrays / match_many / BatchMatcher / match_patterns, the
+two-phase dispatch, and the ops that gained a frame axis (the warp's
+source index, the stacked pyramid, the per-frame NMS).
+
+Tolerances are the ROADMAP's: valid masks equal, score 1e-5, centre and
+angle 1e-3 against JAX; the port's batch against its own match() to 1e-6
+and 1e-5 (the same arithmetic); the ops exactly. The warp kernel's batched
+form is held against its plain version on the card by
+tests/test_torch_batch_card.py, which imports no JAX.
+"""
+
+import dataclasses
+
+import cv2
+import numpy as np
+import pytest
+import torch
+
+import fastest_image_pattern_matching_tpu as jfipm
+from fastest_image_pattern_matching_tpu.models import batch as jbatch
+from fastest_image_pattern_matching_tpu.models import template_matcher as jtm
+
+import fastest_image_pattern_matching_tpu_torch as tfipm
+from fastest_image_pattern_matching_tpu_torch.models import batch as tbatch
+from fastest_image_pattern_matching_tpu_torch.models import (
+    template_matcher as ttm)
+from fastest_image_pattern_matching_tpu_torch.ops import nms as tnms
+from fastest_image_pattern_matching_tpu_torch.ops import pyramid as tpyr
+from fastest_image_pattern_matching_tpu_torch.ops import warp as twarp
+from tests.test_config_knobs import _build_scene
+from tests.test_torch_match import _assert_same_result, _paste_rotated
+
+
+def _tol0_problem():
+    """tests/test_batch.py's fixture: 4 frames of 200x260 at tol 0, three
+    with the template planted, one empty."""
+    rng = np.random.default_rng(11)
+    tpl = rng.integers(0, 255, (24, 32), np.uint8)
+    frames = []
+    for k in range(3):
+        f = rng.integers(0, 60, (200, 260), np.uint8)
+        f[30 + 40 * k:54 + 40 * k, 50 + 30 * k:82 + 30 * k] = tpl
+        frames.append(f)
+    frames.append(rng.integers(0, 60, (200, 260), np.uint8))
+    return np.stack(frames), tpl
+
+
+def _rotated_problem():
+    """3 frames of 200x240: the dry-run template of __graft_entry__ at 20
+    and -15 deg on noise, and a blank frame of the border colour (no
+    candidate survives there)."""
+    t = np.full((40, 56), 30, np.uint8)
+    cv2.rectangle(t, (4, 4), (51, 35), 200, 2)
+    cv2.line(t, (8, 8), (48, 30), 255, 3)
+    frames = []
+    for k, a in enumerate((20.0, -15.0)):
+        f = np.random.default_rng(20 + k).integers(0, 30, (200, 240),
+                                                   np.uint8)
+        _paste_rotated(f, t, 96.0, 80.0, a)
+        frames.append(f)
+    frames.append(np.full((200, 240), 255, np.uint8))
+    return np.stack(frames), t
+
+
+PROBLEMS = {
+    "tol0": (_tol0_problem,
+             dict(max_pos=5, score=0.8, tolerance_angle=0.0)),
+    "tol30": (_rotated_problem,
+              dict(max_pos=4, score=0.7, tolerance_angle=30.0)),
+    # Score 0.02 keeps the noise peaks of the two noisy frames above the
+    # NMS cap (128 of 189 candidates); the blank frame has none. Subpixel
+    # is off: the fits of noise peaks are ill-conditioned (see
+    # test_torch_match_configs' nms-overflow case), and without them
+    # every entry is held to the standard tolerance.
+    "tol30_overflow": (_rotated_problem,
+                       dict(max_pos=16, score=0.02, tolerance_angle=30.0,
+                            max_overlap=0.7, use_subpixel=False)),
+}
+
+
+@pytest.fixture(scope="module")
+def problems():
+    """Per problem: frames, template, JAX pattern, port pattern, config
+    and JAX's match_many_arrays (computed once)."""
+    out = {}
+    for name, (make, kw) in PROBLEMS.items():
+        frames, tpl = make()
+        jp = jfipm.learn_pattern(tpl, 256)
+        cfg = jfipm.MatchConfig(**kw)
+        out[name] = (frames, tpl, jp, tfipm.pattern_from_reference(jp), cfg,
+                     jbatch.match_many_arrays(frames, jp, cfg))
+    return out
+
+
+def _frame(out, i):
+    return {k: v[i] for k, v in out.items()}
+
+
+def _same_own(got, want):
+    """The port's batch against its own single-frame run."""
+    np.testing.assert_array_equal(got["valid"], want["valid"])
+    np.testing.assert_allclose(got["score"], want["score"], atol=1e-6)
+    v = want["valid"]
+    for k in ("center", "angle"):
+        np.testing.assert_allclose(got[k][v], want[k][v], atol=1e-5)
+
+
+@pytest.mark.parametrize("name", list(PROBLEMS))
+def test_match_many_arrays_vs_jax(problems, name):
+    frames, _, _, tp, cfg, want = problems[name]
+    got = tfipm.match_many_arrays(frames, tp, cfg, device="cpu")
+    assert got["valid"].shape == want["valid"].shape
+    for i in range(frames.shape[0]):
+        _assert_same_result(_frame(got, i), _frame(want, i))
+    if name == "tol0":
+        assert got["valid"][:3].sum(axis=1).tolist() == [1, 1, 1]
+        assert not got["valid"][3].any()
+    if name == "tol30":
+        assert got["valid"].sum(axis=1).tolist() == [1, 1, 0]
+
+
+def test_overflow_frames_rerun_alone(problems):
+    """The overflow case really overflows in the two noisy frames and not
+    in the blank one, and each is re-run with the cap lifted."""
+    frames, _, _, tp, cfg, _ = problems["tol30_overflow"]
+    plan, stats, args = tbatch._prepare_batch(frames, tp, cfg, None,
+                                              torch.device("cpu"))
+    st = ttm.build_stages(plan, stats, "cpu")
+    flags = ttm._dispatch(st, args, cfg)[:, -1, 0] > 0.5
+    assert flags.tolist() == [True, True, False]
+    assert plan.nms_cap < plan.c_max
+    got = tfipm.match_many_arrays(frames, tp, cfg, device="cpu")
+    assert got["valid"][:2].all()
+
+
+@pytest.mark.parametrize("name", list(PROBLEMS))
+def test_match_many_equals_match(problems, name):
+    """The per-frame contract of tests/test_batch.py: match_many[i] equals
+    match(frame i), as arrays and as MatchResult lists."""
+    frames, _, _, tp, cfg, _ = problems[name]
+    got = tfipm.match_many_arrays(frames, tp, cfg, device="cpu")
+    lists = tfipm.match_many(frames, tp, cfg, device="cpu")
+    for i in range(frames.shape[0]):
+        want = tfipm.match_arrays(frames[i], tp, cfg, device="cpu")
+        _same_own(_frame(got, i), want)
+        one = tfipm.match(frames[i], tp, cfg, device="cpu")
+        assert [(r.score, r.center, r.angle) for r in lists[i]] == \
+            [(r.score, r.center, r.angle) for r in one]
+
+
+def test_match_many_tensor_input(problems):
+    """A tensor batch (f32 or u8; on the card it is used without a copy)
+    gives the numpy batch's results; BatchMatcher too."""
+    frames, _, _, tp, cfg, _ = problems["tol0"]
+    want = tfipm.match_many_arrays(frames, tp, cfg, device="cpu")
+    for t in (torch.as_tensor(frames), torch.as_tensor(frames).float()):
+        got = tfipm.match_many_arrays(t, tp, cfg, device="cpu")
+        for i in range(frames.shape[0]):
+            _same_own(_frame(got, i), _frame(want, i))
+    bm = tfipm.BatchMatcher(tp, cfg, batch_size=4, device="cpu")
+    bm.warmup(frames.shape[1:])
+    for a, b in zip(bm.match_batch(frames),
+                    tfipm.match_many(frames, tp, cfg, device="cpu")):
+        assert [(r.score, r.center) for r in a] == \
+            [(r.score, r.center) for r in b]
+
+
+@pytest.mark.parametrize("case", ["u8", "shape", "bucket", "larger"])
+def test_match_many_input_checks(problems, case):
+    frames, _, _, tp, cfg, _ = problems["tol0"]
+    kw, match = {}, None
+    if case == "u8":
+        bad = frames.astype(np.float32)
+        bad[0, 0, 0] = 300.0
+        args, match = (bad, tp, cfg), "0, 255"
+    elif case == "shape":
+        args, match = (frames[0], tp, cfg), "B, H, W"
+    elif case == "bucket":
+        args, kw, match = (frames, tp, cfg), dict(batch_bucket=2), "< batch"
+    else:
+        args, match = (frames[:, :20, :20], tp, cfg), "larger than source"
+    with pytest.raises(ValueError, match=match):
+        tfipm.match_many_arrays(*args, device="cpu", **kw)
+    # 4-D colour frames go through ensure_gray.
+    colour = np.repeat(frames[..., None], 3, axis=-1)
+    got = tfipm.match_many_arrays(colour, tp, cfg, device="cpu")
+    assert got["valid"].shape == (4, cfg.max_pos)
+
+
+@pytest.mark.parametrize("quantize", [True, False])
+def test_warp_source_index_equals_loop(quantize):
+    """The plain warp on a stack of sources with a source index equals a
+    loop over the sources, map by map, exactly."""
+    rng = np.random.default_rng(5)
+    srcs = torch.as_tensor(rng.integers(0, 256, (3, 50, 70)).astype(
+        np.float32))
+    maps = torch.as_tensor(np.stack([
+        [[np.cos(a), -np.sin(a), 5.0 + a], [np.sin(a), np.cos(a), -3.0]]
+        for a in rng.uniform(-3, 3, 7)]).astype(np.float32))
+    idx = torch.as_tensor([2, 0, 1, 1, 2, 0, 2])
+    got = twarp.warp_affine_batch(srcs, maps, (31, 45), 17.0, quantize,
+                                  src_index=idx)
+    want = torch.cat([twarp.warp_affine_batch(srcs[f], maps[i:i + 1],
+                                              (31, 45), 17.0, quantize)
+                      for i, f in enumerate(idx.tolist())])
+    assert torch.equal(got, want)
+    disp = twarp.warp_affine_dispatch(srcs, maps, (31, 45), 17.0, quantize,
+                                      src_index=idx)
+    assert torch.equal(disp, want)
+    with pytest.raises(ValueError, match="src_index"):
+        twarp.warp_affine_batch(srcs, maps, (31, 45), 17.0)
+
+
+@pytest.mark.parametrize("hw", [(37, 52), (64, 64), (5, 9)])
+def test_pyr_down_stack_equals_per_frame(hw):
+    rng = np.random.default_rng(6)
+    stack = torch.as_tensor(rng.integers(0, 256, (3,) + hw).astype(
+        np.float32))
+    stack[1] = 255.0
+    stack[2, ::2, ::2] = 0.0
+    got = tpyr.build_pyramid(stack, 2)
+    for f in range(3):
+        for a, b in zip(got, tpyr.build_pyramid(stack[f], 2)):
+            assert torch.equal(a[f], b)
+
+
+@pytest.mark.parametrize("overlap", [0.0, 0.3])
+def test_filter_overlaps_frames_equal_per_frame(overlap):
+    """The frame axis of the NMS: each frame's keep mask equals its own
+    [C] run (pairs only within a frame), exactly."""
+    rng = np.random.default_rng(7)
+    N, C = 4, 30
+    pts = torch.as_tensor(rng.uniform(0, 80, (N, C, 2)).astype(np.float32))
+    ang = torch.as_tensor(rng.uniform(-180, 180, (N, C)).astype(np.float32))
+    quads = tnms.rotated_rect_corners(pts, ang, 40.0, 30.0)
+    valid = torch.as_tensor(rng.uniform(size=(N, C)) < 0.7)
+    valid[2] = False
+    got = tnms.filter_overlaps(quads, valid, 1200.0, overlap)
+    for f in range(N):
+        assert torch.equal(got[f], tnms.filter_overlaps(quads[f], valid[f],
+                                                        1200.0, overlap))
+    assert not got[2].any() and got.any()
+
+
+def test_match_patterns_vs_jax(problems):
+    """Two same-shaped patterns and one of another shape: two groups,
+    results in input order, each equal to JAX's match_patterns and to the
+    port's own match_arrays."""
+    frames, tpl, jp, tp, cfg, _ = problems["tol0"]
+    other = np.random.default_rng(12).integers(0, 255, (18, 26), np.uint8)
+    jps = [jp, jfipm.learn_pattern(tpl[::-1].copy(), 256),
+           jfipm.learn_pattern(other, 256)]
+    tps = [tfipm.pattern_from_reference(p) for p in jps]
+    want = jbatch.match_patterns(frames[1], jps, cfg)
+    got = tfipm.match_patterns(frames[1], tps, cfg, device="cpu")
+    assert len(got) == 3
+    for g, w, p in zip(got, want, tps):
+        _assert_same_result(g, w)
+        _same_own(g, tfipm.match_arrays(frames[1], p, cfg, device="cpu"))
+    assert got[0]["valid"].sum() == 1
+
+
+@pytest.fixture(scope="module")
+def two_phase_scene():
+    """tests/test_config_knobs.py's 96x96 scene (3 targets at 10, -25 and
+    0 deg in 420x460) and its configuration."""
+    rng = np.random.default_rng(3)
+    tpl = np.full((96, 96), 60, np.uint8)
+    cv2.rectangle(tpl, (8, 8), (87, 87), 200, 6)
+    cv2.circle(tpl, (48, 48), 22, 240, -1)
+    cv2.line(tpl, (12, 80), (80, 16), 20, 5)
+    tpl = cv2.add(tpl, rng.integers(0, 15, tpl.shape, dtype=np.uint8))
+    scene = _build_scene(rng, tpl, [(110.0, 120.0, 10.0),
+                                    (300.0, 140.0, -25.0),
+                                    (180.0, 320.0, 0.0)])
+    jp = jfipm.learn_pattern(tpl, 256)
+    cfg = jfipm.MatchConfig(max_pos=5, score=0.7, tolerance_angle=30.0,
+                            max_overlap=0.2)
+    return scene, jp, tfipm.pattern_from_reference(jp), cfg
+
+
+def test_two_phase_vs_default_and_jax(two_phase_scene):
+    scene, jp, tp, cfg = two_phase_scene
+    cfg2 = dataclasses.replace(cfg, two_phase=True)
+    plan, stats, args = ttm._prepare(scene, tp, cfg2, torch.device("cpu"))
+    st = ttm.build_stages(plan, stats, "cpu")
+    assert st.split is not None
+    state, _ = st.phase_a(*args)
+    n_alive = int(state[3].sum())
+    assert 0 < ttm._bucket(n_alive, state[3].shape[0]) < state[3].shape[0]
+    two = tfipm.match_arrays(scene, tp, cfg2, device="cpu")
+    one = tfipm.match_arrays(scene, tp, cfg, device="cpu")
+    _same_own(two, one)
+    assert int(two["valid"].sum()) == 3
+    _assert_same_result(two, jtm.match_arrays(scene, jp, cfg2))
+
+
+def test_two_phase_empty_scene(two_phase_scene):
+    """No candidate alive after phase A: the empty result, like JAX's."""
+    _, jp, tp, cfg = two_phase_scene
+    cfg2 = dataclasses.replace(cfg, two_phase=True)
+    noise = np.random.default_rng(8).integers(0, 40, size=(420, 460),
+                                              dtype=np.uint8)
+    got = tfipm.match_arrays(noise, tp, cfg2, device="cpu")
+    want = jtm.match_arrays(noise, jp, cfg2)
+    assert not got["valid"].any()
+    for k in ("score", "angle", "center", "corners", "valid"):
+        np.testing.assert_array_equal(got[k], want[k])
