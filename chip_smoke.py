@@ -58,6 +58,22 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      target each, tools/stream_bench.py's walk, tolerance 15 deg) through
      inspect_corpus in batches of 8, 8, 8 and 1: the target in every
      frame within 1 px, every warp launch bit-equal to the plain version.
+ 15. ORB (orb_match, the default ORBConfig: 500 features, 8 levels, 150
+     good matches, 2000 RANSAC draws) on one pair at two sizes: the ORB
+     bench's 265x334 scene with a 200x200 template, and a 4024x3036 camera
+     frame with a 762x521 template, each template turned and shifted into
+     its scene: the homography found, corners within 3 px of the truth;
+     the card against the CPU on the same draws (is_matched and inliers
+     equal, corners within 0.5 px); wall, the detect / match / RANSAC
+     split, a profiler pass (busy share, launches and host syncs a call).
+ 16. orb_match_many on eight 480x640 frames (five hold the part): each
+     frame's result equal to its own orb_match on the card; wall per frame
+     against one call.
+ 17. the CLI through cli.main: match --json on the flagship scene (3
+     targets, equal to match(), warp kernel launched), orb --json on phase
+     15's pair, ocr --json on phase 13's plate and glyphs ("M12X05"),
+     watch over a directory of three frames, settings; then match --json
+     in a fresh `python -m` process, its first call's wall.
 The last three lines of output are the kernels' JSON summary, the card's
 name and power limit, and {"ok": true, "device": {...}}. Imports nothing
 of JAX.
@@ -378,6 +394,95 @@ def stream_frames(templ, n, hw=(480, 640), seed=5):
     return np.stack(frames), centres
 
 
+def orb_template(hw, seed):
+    """tests/test_orb.py::_textured without cv2: 8x8 blocks of uniform
+    noise, a Gaussian blur (sigma 1) and discs of random grey, one per
+    1500 px^2 (40 on a 240x320 image)."""
+    from scipy import ndimage
+    rng = np.random.default_rng(seed)
+    h, w = hw
+    blocks = rng.integers(0, 255, size=(h // 8 + 1, w // 8 + 1))
+    img = np.repeat(np.repeat(blocks, 8, 0), 8, 1)[:h, :w]
+    img = np.clip(np.rint(ndimage.gaussian_filter(img.astype(np.float64),
+                                                  1.0)), 0, 255)
+    img = img.astype(np.uint8)
+    for _ in range(max(40, h * w // 1500)):
+        x, y = rng.integers(10, w - 10), rng.integers(10, h - 10)
+        _disc(img, int(x), int(y), int(rng.integers(3, 9)),
+              int(rng.integers(0, 255)))
+    return img
+
+
+def orb_pose(templ, cx, cy, angle_deg):
+    """The affine map [2, 3] taking template pixel (x, y) to the scene:
+    turn by angle_deg about the template's centre, then put that centre
+    at (cx, cy)."""
+    th, tw = templ.shape
+    a = math.radians(angle_deg)
+    ca, sa = math.cos(a), math.sin(a)
+    tc = np.array([(tw - 1) / 2.0, (th - 1) / 2.0])
+    lin = np.array([[ca, -sa], [sa, ca]])
+    return np.concatenate([lin, (np.array([cx, cy]) - lin @ tc)[:, None]],
+                          1)
+
+
+def orb_paste(scene, templ, fwd):
+    """Draw templ into scene (in place) through the affine map fwd
+    (template -> scene, bilinear). Returns the template's corners in the
+    scene, in ORBResult.corners' order: the images of (0, 0), (w, 0),
+    (w, h), (0, h)."""
+    from scipy import ndimage
+    th, tw = templ.shape
+    inv = np.linalg.inv(np.vstack([fwd, [0.0, 0.0, 1.0]]))[:2]
+    # scipy indexes (row, col): src_rc = M_rc @ dst_rc + off_rc.
+    m_rc = np.array([[inv[1, 1], inv[1, 0]], [inv[0, 1], inv[0, 0]]])
+    off_rc = np.array([inv[1, 2], inv[0, 2]])
+    out = ndimage.affine_transform(templ.astype(np.float64), m_rc, off_rc,
+                                   output_shape=scene.shape, order=1)
+    inside = ndimage.affine_transform(np.ones(templ.shape), m_rc, off_rc,
+                                      output_shape=scene.shape, order=1)
+    keep = inside > 0.999
+    scene[keep] = np.clip(np.rint(out[keep]), 0, 255).astype(np.uint8)
+    tc = np.array([[0, 0], [tw, 0], [tw, th], [0, th]], np.float64)
+    return tc @ fwd[:, :2].T + fwd[:, 2]
+
+
+def orb_pairs():
+    """Phase 15's two pairs: the ORB bench's shape (a 265x334 scene, a
+    200x200 template, ORB_r05.json image_hw/template_hw) and a flagship
+    camera frame (4024x3036, a 762x521 template). Each scene is noise in
+    [0, 40) with its template turned and shifted in. Returns [(name, scene,
+    template, true corners [4, 2])]."""
+    pairs = []
+    for name, hw, thw, pose, seed in (
+            ("265x334", (265, 334), (200, 200), (170.0, 133.0, 12.0), 51),
+            ("4024x3036", (3036, 4024), (521, 762),
+             (2210.0, 1480.0, -23.0), 52)):
+        t = orb_template(thw, seed)
+        scene = np.random.default_rng(seed + 100).integers(
+            0, 40, size=hw, dtype=np.uint8)
+        pairs.append((name, scene, t,
+                      orb_paste(scene, t, orb_pose(t, *pose))))
+    return pairs
+
+
+def orb_frames(templ, n=8, hw=(480, 640), seed=61):
+    """Phase 16's frames: noise in [0, 40); frames 0, 1, 3, 4 and 6 hold
+    templ turned and shifted. Returns (frames [n, H, W] u8, true corners
+    per frame, None where the part is absent)."""
+    rng = np.random.default_rng(seed)
+    frames, truths = [], []
+    for i in range(n):
+        f = rng.integers(0, 40, size=hw, dtype=np.uint8)
+        corners = None
+        if i in (0, 1, 3, 4, 6):
+            corners = orb_paste(f, templ, orb_pose(
+                templ, 200.0 + 35.0 * i, 180.0 + 12.0 * i, -30.0 + 11.0 * i))
+        frames.append(f)
+        truths.append(corners)
+    return np.stack(frames), truths
+
+
 def flagship_config(fipm):
     return fipm.MatchConfig(max_pos=3, score=0.7, tolerance_angle=180.0,
                             max_overlap=0.1, use_subpixel=True)
@@ -613,6 +718,9 @@ def main() -> int:
     many, corr = many_target_phases(fipm, corr_kernel, warp_kernel, dev, smi)
     warp.update(batch_phases(fipm, warp_kernel, corr_kernel, dev, smi,
                              single, many))
+    orb_phases(fipm, dev, smi)
+    warp["cli_match_launches"], corr["cli_match_launches"] = cli_phase(
+        fipm, warp_kernel, corr_kernel, dev, smi)
     print(json.dumps({"kernels": [warp, corr]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
@@ -1405,6 +1513,302 @@ def batch_phases(fipm, warp_kernel, corr_kernel, dev, smi, single, many):
             "batch_l0_plain_ms": [r[4] for r in batch_l0],
             "batch_l0_library_ms": [r[5] for r in batch_l0],
             "batch_l0_shapes": [list(r[3]) for r in batch_l0]}
+
+
+def orb_fields(r):
+    """An ORBResult's fields as numpy arrays / numbers, for equality."""
+    return {k: (np.asarray(v) if v is not None else None)
+            for k, v in dataclasses.asdict(r).items()}
+
+
+def orb_same(tag, got, want):
+    """Two ORBResults equal field by field, bit for bit."""
+    a, b = orb_fields(got), orb_fields(want)
+    for k in a:
+        if (a[k] is None) != (b[k] is None) or (
+                a[k] is not None and not np.array_equal(a[k], b[k])):
+            raise AssertionError(f"{tag}: {k} differs: {a[k]} vs {b[k]}")
+
+
+def corner_err(res, truth):
+    """Largest distance (px) of res.corners from the true corners."""
+    if not res.is_matched or res.corners is None:
+        return math.inf
+    return float(np.abs(np.linalg.norm(res.corners - truth, axis=1)).max())
+
+
+def orb_split(orb, scene, templ, cfg, dev, seed=0):
+    """CUDA-event times of one orb_match's stages, composed from the same
+    functions it runs: upload, detect (template and source), match
+    (Hamming and the best N), RANSAC (hypotheses and LO refits), and the
+    packed copy back."""
+    import torch
+    from fastest_image_pattern_matching_tpu_torch.models.template_matcher \
+        import upload_frames
+    marks = []
+
+    def mark(name):
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        marks.append((name, e))
+
+    torch.cuda.synchronize()
+    mark("start")
+    tpl = upload_frames(templ, dev)[None]
+    src = upload_frames(scene[None], dev)
+    mark("upload")
+    pt, dt, vt = orb._detect_and_describe(tpl, cfg)
+    feats = orb._detect_and_describe(src, cfg)
+    mark("detect")
+    s_pts, t_pts, good, _ = orb._good_matches(feats, (pt[0], dt[0], vt[0]),
+                                              cfg.max_good_matches)
+    mark("match")
+    H, mask = orb._ransac(s_pts, t_pts, good, cfg.ransac_threshold,
+                          orb._ransac_samples(seed, cfg.ransac_iters,
+                                              str(dev)))
+    mark("ransac")
+    torch.cat([H.reshape(1, 9), mask.float()], 1).cpu()
+    mark("copy back")
+    torch.cuda.synchronize()
+    return {name: prev.elapsed_time(e)
+            for (_, prev), (name, e) in zip(marks, marks[1:])}
+
+
+def orb_phases(fipm, dev, smi):
+    """Phases 15-16: ORB on one pair at the ORB bench's size and at the
+    flagship's, card against CPU; then orb_match_many against per-frame
+    orb_match. Nothing here launches either hand-written kernel: ORB is
+    plain PyTorch, as it is plain jnp in the JAX package."""
+    import torch
+    from fastest_image_pattern_matching_tpu_torch.models import orb
+
+    cfg = fipm.ORBConfig()
+    pairs = orb_pairs()
+    for name, scene, templ, truth in pairs:
+        tag = f"[15 orb {name}]"
+        fipm.orb_match(scene, templ, cfg, device=dev)
+        res = fipm.orb_match(scene, templ, cfg, device=dev)
+        err = corner_err(res, truth)
+        log(f"{tag} scene {scene.shape[1]}x{scene.shape[0]}, template "
+            f"{templ.shape[1]}x{templ.shape[0]}: matched {res.is_matched}, "
+            f"{res.num_inliers} inliers of {res.num_good_matches} good "
+            f"matches, corners at most {err:.3f} px from the truth, "
+            f"rotation {res.rotation_angle:.3f} deg")
+        if not res.is_matched or err > 3.0:
+            raise AssertionError(f"{tag} homography not recovered")
+        t0 = time.perf_counter()
+        cpu = fipm.orb_match(scene, templ, cfg, device="cpu")
+        cpu_s = time.perf_counter() - t0
+        d = float(np.abs(res.corners - cpu.corners).max()) \
+            if cpu.is_matched else math.inf
+        log(f"{tag} card vs CPU (same draws): matched {res.is_matched} / "
+            f"{cpu.is_matched}, inliers {res.num_inliers} / "
+            f"{cpu.num_inliers}, corners max |d| {d:.6f} px; the CPU call "
+            f"took {cpu_s:.2f} s")
+        if cpu.is_matched != res.is_matched \
+                or cpu.num_inliers != res.num_inliers or d > 0.5:
+            raise AssertionError(f"{tag} the card disagrees with the CPU")
+        run = lambda: fipm.orb_match(scene, templ, cfg, device=dev)
+        log_walls(tag, run, smi)
+        split = [orb_split(orb, scene, templ, cfg, dev) for _ in range(3)]
+        log(f"{tag} split ms (CUDA events, median of 3): " + ", ".join(
+            f"{k} {statistics.median(x[k] for x in split):.3f}"
+            for k in split[0]) + f" ({smi})")
+        profile_match(tag, run, smi)
+        del scene
+        torch.cuda.empty_cache()
+
+    # Phase 16: orb_match_many against per-frame orb_match.
+    templ = pairs[0][2]
+    frames, truths = orb_frames(templ)
+    many = fipm.orb_match_many(frames, templ, cfg, device=dev)
+    for i, (r, t) in enumerate(zip(many, truths)):
+        orb_same(f"[16 orb many] frame {i}", r,
+                 fipm.orb_match(frames[i], templ, cfg, device=dev))
+        err = corner_err(r, t) if t is not None else None
+        log(f"[16 orb many] frame {i}: part {'in' if t is not None else
+            'absent'}, matched {r.is_matched}, {r.num_inliers} inliers"
+            + (f", corners at most {err:.3f} px off" if t is not None
+               else ""))
+        if t is not None and err > 3.0:
+            raise AssertionError(f"[16 orb many] frame {i}: part not found")
+    held = min(r.num_inliers for r, t in zip(many, truths) if t is not None)
+    stray = max(r.num_inliers for r, t in zip(many, truths) if t is None)
+    if stray >= held:
+        raise AssertionError(f"[16 orb many] a frame without the part has "
+                             f"{stray} inliers, one with it {held}")
+    log(f"[16 orb many] each of {len(frames)} frames equal to its own "
+        f"orb_match on the card, field by field; inliers {held} or more "
+        f"with the part, {stray} or fewer without")
+    n = len(frames)
+    wall_many = log_walls(f"[16 orb many] batch of {n}", lambda:
+                          fipm.orb_match_many(frames, templ, cfg,
+                                              device=dev), smi, n=3)
+    wall_one = log_walls("[16 orb many] one frame", lambda: fipm.orb_match(
+        frames[0], templ, cfg, device=dev), smi)
+    log(f"[16 orb many] wall per frame {wall_many / n:.2f} ms against "
+        f"{wall_one:.2f} ms for one orb_match ({wall_many / n / wall_one:.2f}"
+        f"x) ({smi})")
+    profile_match(f"[16 orb many] batch of {n}", lambda: fipm.orb_match_many(
+        frames, templ, cfg, device=dev), smi, frames=n)
+
+
+def cli_phase(fipm, warp_kernel, corr_kernel, dev, smi):
+    """Phase 17: the CLI through its normal entry point, cli.main(argv),
+    on images written with save_gray to a temporary directory and with
+    its settings in a temporary file; then one fresh `python -m` process.
+    Returns the warp and correlation kernel launches of the in-process
+    `match` run."""
+    import contextlib
+    import io
+    import tempfile
+    import torch
+    from fastest_image_pattern_matching_tpu_torch import cli
+    from fastest_image_pattern_matching_tpu_torch.utils.imageio import (
+        save_gray)
+
+    def run_cli(argv):
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(argv)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        if rc != 0:
+            raise AssertionError(f"[17 cli] {argv[0]} exited {rc}: "
+                                 f"{out.getvalue()[-2000:]}")
+        return out.getvalue(), ms
+
+    old_env = os.environ.get("FIPM_TPU_SETTINGS")
+    with tempfile.TemporaryDirectory() as tmp:
+        os.environ["FIPM_TPU_SETTINGS"] = os.path.join(tmp, "settings.json")
+        try:
+            scene, templ, _ = flagship_scene()
+            src_p, tpl_p = (os.path.join(tmp, f) for f in ("src.bmp",
+                                                             "tpl.bmp"))
+            save_gray(src_p, scene)
+            save_gray(tpl_p, templ)
+            cfg = flagship_config(fipm)
+            argv = ["match", "-s", src_p, "-t", tpl_p, "--json",
+                    "--max-pos", "3", "--score", "0.7", "--tolerance-angle",
+                    "180", "--max-overlap", "0.1"]
+            run_cli(argv)
+            warp_kernel.LAUNCHES = corr_kernel.LAUNCHES = 0
+            text, ms = run_cli(argv)
+            launches = (warp_kernel.LAUNCHES, corr_kernel.LAUNCHES)
+            got = json.loads(text)
+            want = fipm.match(scene, fipm.learn_pattern(templ, 256,
+                                                        device=dev),
+                              cfg, device=dev)
+            same = got["count"] == len(want) == 3 and all(
+                m["score"] == r.score and m["angle"] == r.angle
+                and m["pos_x"] == r.pos_x and m["pos_y"] == r.pos_y
+                for m, r in zip(got["matches"], want))
+            log(f"[17 cli] match --json: {got['count']} targets, equal to "
+                f"match(): {same}; warp kernel launches {launches[0]}, "
+                f"correlation {launches[1]}; execution_ms "
+                f"{got['execution_ms']}, call {ms:.2f} ms in process "
+                f"({smi})")
+            if not same or launches[0] <= 0:
+                raise AssertionError("[17 cli] match differs from match() "
+                                     "or launched no warp kernel")
+
+            name, oscene, otempl, otruth = orb_pairs()[0]
+            osrc, otpl = (os.path.join(tmp, f) for f in ("osrc.bmp",
+                                                           "otpl.bmp"))
+            save_gray(osrc, oscene)
+            save_gray(otpl, otempl)
+            text, ms = run_cli(["orb", "-s", osrc, "-t", otpl, "--json"])
+            o = json.loads(text)
+            err = float(np.abs(np.linalg.norm(
+                np.asarray(o["corners"]) - otruth, axis=1)).max()) \
+                if o["corners"] is not None else math.inf
+            log(f"[17 cli] orb --json ({name}): matched {o['is_matched']}, "
+                f"{o['num_inliers']} inliers, corners at most {err:.3f} px "
+                f"off; execution_ms {o['execution_ms']}, call {ms:.2f} ms")
+            if not o["is_matched"] or err > 3.0:
+                raise AssertionError("[17 cli] orb missed the homography")
+
+            gdir = os.path.join(tmp, "glyphs")
+            os.makedirs(gdir)
+            for ch in FONT_5X7:
+                save_gray(os.path.join(gdir, f"{ch}.bmp"), glyph(ch))
+            plate, _ = ocr_plate()
+            plate_p = os.path.join(tmp, "plate.bmp")
+            save_gray(plate_p, plate)
+            ocfg = ocr_config(fipm)
+            text, ms = run_cli([
+                "ocr", "--glyphs-dir", gdir, "-s", plate_p, "--json",
+                "--score", str(ocfg.score), "--max-pos", str(ocfg.max_pos),
+                "--tolerance-angle", str(ocfg.tolerance_angle),
+                "--max-overlap", str(ocfg.max_overlap),
+                "--min-reduce-area", str(ocfg.min_reduce_area)])
+            o = json.loads(text)
+            log(f"[17 cli] ocr --json: read {o['text']!r} with "
+                f"{o['glyphs']} glyphs, time_ms {o['time_ms']:.2f}, call "
+                f"{ms:.2f} ms")
+            if o["text"] != "M12X05":
+                raise AssertionError(f"[17 cli] ocr read {o['text']!r}")
+
+            wdir = os.path.join(tmp, "watch")
+            os.makedirs(wdir)
+            stpl = stream_template()
+            sframes, centres = stream_frames(stpl, 3)
+            for i, f in enumerate(sframes):
+                save_gray(os.path.join(wdir, f"frame{i}.bmp"), f)
+            stpl_p = os.path.join(tmp, "part.bmp")
+            save_gray(stpl_p, stpl)
+            jsonl = os.path.join(tmp, "watch.jsonl")
+            text, ms = run_cli(["watch", "-t", stpl_p, "--directory", wdir,
+                                "--max-frames", "3", "--out", jsonl,
+                                "--max-pos", "1", "--score", "0.6",
+                                "--tolerance-angle", "15"])
+            with open(jsonl) as f:
+                recs = [json.loads(line) for line in f]
+            offs = [math.hypot(r["matches"][0]["pos_x"] - c[0],
+                               r["matches"][0]["pos_y"] - c[1])
+                    if r["count"] == 1 else math.inf
+                    for r, c in zip(recs, centres)]
+            log(f"[17 cli] watch: {len(recs)} records, the part at most "
+                f"{max(offs):.3f} px off; execution_ms "
+                f"{[round(r['execution_ms'], 2) for r in recs]}, call "
+                f"{ms:.2f} ms")
+            if len(recs) != 3 or max(offs) > 1.0:
+                raise AssertionError("[17 cli] watch missed a frame")
+
+            text, _ = run_cli(["settings"])
+            st = json.loads(text)["settings"]
+            log(f"[17 cli] settings: {len(st)} keys, last_source "
+                f"{os.path.basename(st.get('last_source', ''))!r}")
+            if st.get("last_source") != src_p or st.get("max_pos") != 3:
+                raise AssertionError("[17 cli] settings not saved")
+
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-m",
+                 "fastest_image_pattern_matching_tpu_torch.cli"] + argv,
+                capture_output=True, text=True, timeout=300,
+                cwd=os.path.dirname(os.path.abspath(__file__)))
+            proc_s = time.perf_counter() - t0
+            if proc.returncode != 0:
+                raise AssertionError(f"[17 cli] fresh process exited "
+                                     f"{proc.returncode}: "
+                                     f"{proc.stderr[-2000:]}")
+            fresh = json.loads(proc.stdout.strip().splitlines()[-1])
+            if fresh["matches"] != got["matches"]:
+                raise AssertionError("[17 cli] the fresh process's matches "
+                                     "differ")
+            log(f"[17 cli] fresh process match --json: {fresh['count']} "
+                f"targets, equal to the in-process run; first call "
+                f"execution_ms {fresh['execution_ms']} (kernel loading "
+                f"included) against {got['execution_ms']} warm; process "
+                f"wall {proc_s:.2f} s ({smi})")
+        finally:
+            if old_env is None:
+                os.environ.pop("FIPM_TPU_SETTINGS", None)
+            else:
+                os.environ["FIPM_TPU_SETTINGS"] = old_env
+    return launches
 
 
 def record_calls(module, name, run):

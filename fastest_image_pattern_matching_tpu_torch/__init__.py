@@ -9,7 +9,9 @@ device every warp runs the hand-written kernel in csrc/warp_affine.cu and
 every large-map correlation (tol=0 many-target scenes, match_template) the
 one in csrc/ccorr_valid.cu. Batches of frames (match_many, BatchMatcher,
 inspect_corpus) run through the same pipeline with frames as its leading
-axis; glyph sets through match_patterns and MultiTemplateMatcher.
+axis; glyph sets through match_patterns and MultiTemplateMatcher. ORB
+feature matching (orb_match, orb_match_many) is the secondary path, and
+`python -m fastest_image_pattern_matching_tpu_torch.cli` the command line.
 
 The pyramid and the top-layer correlation are exact in f32 only without
 TF32, so importing the package turns TF32 off for matmuls and cuDNN.
@@ -29,11 +31,13 @@ from .models.batch import (BatchMatcher, match_many, match_many_arrays,
                            match_patterns)
 from .models.multi_template import MultiTemplateMatcher
 from .models.corpus import inspect_corpus
+from .models.orb import ORBConfig, ORBResult, orb_match, orb_match_many
 
 __all__ = [
     "MatchConfig", "LearnedPattern", "MatchResult", "TemplateMatcher",
     "learn_pattern", "match", "match_arrays", "match_candidates",
     "match_template", "pattern_from_reference", "BatchMatcher",
     "match_many", "match_many_arrays", "match_patterns",
-    "MultiTemplateMatcher", "inspect_corpus",
+    "MultiTemplateMatcher", "inspect_corpus", "ORBConfig", "ORBResult",
+    "orb_match", "orb_match_many",
 ]

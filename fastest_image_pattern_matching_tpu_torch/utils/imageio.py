@@ -1,7 +1,7 @@
-"""Image input: grayscale conversion of in-memory images and grayscale
-file loading (the port of
-`fastest_image_pattern_matching_tpu/utils/imageio.py::ensure_gray` and
-`load_gray`).
+"""Image input and output: grayscale conversion of in-memory images,
+grayscale file loading and saving (the port of
+`fastest_image_pattern_matching_tpu/utils/imageio.py::ensure_gray`,
+`load_gray` and `save_gray`).
 
 The JAX package decodes BMP with the C++ codec of its native library and
 other formats with cv2 or PIL. The port reads BMP in numpy (8-bit
@@ -109,3 +109,45 @@ def load_gray(path: str) -> np.ndarray:
                           f"only BMP without it: {path}") from e
     with Image.open(path) as im:
         return np.asarray(im.convert("L"))
+
+
+def _bmp_gray_bytes(img: np.ndarray) -> bytes:
+    """A 2-D u8 image as an uncompressed 8-bit BMP with a grey palette,
+    rows bottom-up and padded to 4 bytes."""
+    h, w = img.shape
+    stride = (w + 3) & ~3
+    rows = np.zeros((h, stride), np.uint8)
+    rows[:, :w] = img[::-1]
+    palette = np.repeat(np.arange(256, dtype=np.uint8), 4).reshape(256, 4)
+    palette[:, 3] = 0
+    data_off = 14 + 40 + palette.nbytes
+    size = data_off + rows.nbytes
+    header = (b"BM" + size.to_bytes(4, "little") + bytes(4)
+              + data_off.to_bytes(4, "little"))
+    info = b"".join(v.to_bytes(n, "little", signed=True) for v, n in (
+        (40, 4), (w, 4), (h, 4), (1, 2), (8, 2), (0, 4), (rows.nbytes, 4),
+        (2835, 4), (2835, 4), (256, 4), (0, 4)))
+    return header + info + palette.tobytes() + rows.tobytes()
+
+
+def save_gray(path: str, img) -> None:
+    """Save a 2-D image as u8 grayscale (float input rounded and clipped
+    to [0, 255]). BMP is written here; other formats through PIL, which
+    raises ImportError when it is missing."""
+    img = np.asarray(img)
+    if img.ndim != 2:
+        raise ValueError(f"save_gray takes a 2-D image, got shape "
+                         f"{img.shape}")
+    if img.dtype != np.uint8:
+        img = np.clip(np.round(img), 0, 255).astype(np.uint8)
+    if path.lower().endswith(".bmp"):
+        with open(path, "wb") as f:
+            f.write(_bmp_gray_bytes(img))
+        return
+    try:
+        from PIL import Image
+    except ImportError as e:
+        ext = os.path.splitext(path)[1] or "(no extension)"
+        raise ImportError(f"writing {ext} images needs PIL; the port writes "
+                          f"only BMP without it: {path}") from e
+    Image.fromarray(img).save(path)

@@ -2,7 +2,10 @@
 
 On the CPU: the kernel modules import without nvcc, CPU tensors take the
 plain versions, the wrappers raise on what their kernels do not take, and
-no port source imports JAX, cv2 or the JAX package. Tests marked `cuda`
+no port source imports JAX or the JAX package, nor cv2 but inside the
+functions that draw the CLI's overlays, write ORB records as YAML/XML and
+grab camera frames.
+Tests marked `cuda`
 compare the hand-written kernels with their plain versions on the card and
 skip without one.
 """
@@ -26,6 +29,13 @@ from fastest_image_pattern_matching_tpu_torch.utils import geometry
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "fastest_image_pattern_matching_tpu_torch")
 FORBIDDEN = ("jax", "jaxlib", "cv2", "fastest_image_pattern_matching_tpu")
+# As in the JAX package, cv2 draws the CLI's --output-image overlays,
+# writes ORB records as .yml/.xml and grabs camera frames: these modules may
+# import it inside a function, never at module level (the card's machine
+# has no cv2).
+LAZY_CV2 = (os.path.join(PORT, "cli.py"),
+            os.path.join(PORT, "utils", "serialization.py"),
+            os.path.join(PORT, "utils", "sources.py"))
 
 
 def _port_sources():
@@ -36,12 +46,17 @@ def _port_sources():
 
 
 def test_port_imports_no_jax_cv2_or_jax_package():
-    """Parse every port source: no import of jax, cv2 or the JAX
-    package, at any depth of the module."""
+    """Parse every port source: no import of jax or the JAX package at
+    any depth of the module, and of cv2 none but inside a function of the
+    LAZY_CV2 modules."""
     srcs = _port_sources()
     assert len(srcs) > 10
     for path in srcs:
         tree = ast.parse(open(path).read(), path)
+        in_function = {id(node) for fn in ast.walk(tree)
+                       if isinstance(fn, (ast.FunctionDef,
+                                          ast.AsyncFunctionDef))
+                       for node in ast.walk(fn)}
         for node in ast.walk(tree):
             if isinstance(node, ast.Import):
                 names = [a.name for a in node.names]
@@ -50,7 +65,10 @@ def test_port_imports_no_jax_cv2_or_jax_package():
             else:
                 continue
             for n in names:
-                assert n.split(".")[0] not in FORBIDDEN, (path, n)
+                top = n.split(".")[0]
+                lazy_cv2 = (top == "cv2" and path in LAZY_CV2
+                            and id(node) in in_function)
+                assert top not in FORBIDDEN or lazy_cv2, (path, n)
 
 
 def _maps(src_hw, angles, shift):
