@@ -7,7 +7,7 @@ Phases, each of which fails the run (non-zero exit) when it fails:
   1. device: the card's name and power limit; CUDA is required.
   2. build: compiles both hand-written CUDA kernels (warp, correlation)
      from the sources in this checkout (nvcc, sm_90a), one nvcc each, in
-     parallel.
+     parallel, and the native host library (g++).
   3. warp kernel against its plain PyTorch version on the card, at the
      shapes of the flagship's main path (L0 also with all maps at 0, 45
      and 90 deg), a map wholly outside the image and general affine maps
@@ -74,18 +74,40 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      15's pair, ocr --json on phase 13's plate and glyphs ("M12X05"),
      watch over a directory of three frames, settings; then match --json
      in a fresh `python -m` process, its first call's wall.
+ 18. the native host library (built in phase 2, its g++ seconds): its BMP codec
+     byte-equal to the numpy twin on write and pixel-equal on read; a
+     folder of 24 480x640 corpus frames and one of 4 flagship frames as
+     BMPs, decoded through FileSource on 1 and 4 threads (ms per frame,
+     frames equal); inspect_corpus over FolderSource on 1 and 4 threads
+     (ms per frame, reports equal); no fallback to the numpy codec.
+ 19. profiling: StageTimer around the flagship's stages against the same
+     stages timed with CUDA events (phase 4's split), within the run's
+     noise; device_trace writes a Chrome trace that parses as JSON and
+     names the warp kernel.
+ 20. torch.distributed with NCCL at world size 1 (127.0.0.1, a free port)
+     and make_mesh((1, 1)): match_batch_sharded on phase 10's flagship
+     batch equal to match_many_arrays, with warp kernel launches; Test7 as
+     a batch of two (phase 11) equal, with a correlation kernel launch;
+     orb_match_many_sharded equal to orb_match_many field by field (phase
+     16's frames); match_patterns_sharded equal to match_patterns on phase
+     13's plate, reading "M12X05"; inspect_corpus(mesh=...) equal to phase
+     14's; the wall of each sharded call beside the unsharded one (the
+     collectives' and padding's cost at world 1); destroy_process_group.
 The last three lines of output are the kernels' JSON summary, the card's
 name and power limit, and {"ok": true, "device": {...}}. Imports nothing
 of JAX.
 """
 
+import contextlib
 import dataclasses
 import json
 import math
 import os
+import socket
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -692,6 +714,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import fastest_image_pattern_matching_tpu_torch as fipm
+    from fastest_image_pattern_matching_tpu_torch import native
     from fastest_image_pattern_matching_tpu_torch.ops.cuda import (
         build, corr_kernel, warp_kernel)
 
@@ -713,6 +736,11 @@ def main() -> int:
         for line in report.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"[2 build] ptxas: {line.strip()}")
+    t0 = time.perf_counter()
+    native_path, gxx_s = native.build()
+    native.get_lib()
+    log(f"[2 build] {os.path.relpath(native_path)} g++ {gxx_s:.2f} s, built "
+        f"and loaded in {time.perf_counter() - t0:.2f} s")
 
     single, warp = flagship_phases(fipm, warp_kernel, dev, smi)
     many, corr = many_target_phases(fipm, corr_kernel, warp_kernel, dev, smi)
@@ -720,6 +748,10 @@ def main() -> int:
                              single, many))
     orb_phases(fipm, dev, smi)
     warp["cli_match_launches"], corr["cli_match_launches"] = cli_phase(
+        fipm, warp_kernel, corr_kernel, dev, smi)
+    native_phase(fipm, dev, smi, gxx_s)
+    profiling_phase(fipm, dev, smi, single)
+    warp["sharded_launches"], corr["sharded_launches"] = distributed_phase(
         fipm, warp_kernel, corr_kernel, dev, smi)
     print(json.dumps({"kernels": [warp, corr]}))
     print(smi)
@@ -909,7 +941,7 @@ def flagship_phases(fipm, warp_kernel, dev, smi):
     km, pm, lm, bms, by, kdm, ldm = times["L0"]
     single = dict(launches=launches, wall=wall, profile=prof,
                   l0_ms=[r[2] for r in rows["L0"]], l0_bound_ms=[
-                      r[5] for r in rows["L0"]])
+                      r[5] for r in rows["L0"]], stage_ms=stage_ms)
     return single, {
         "name": "warp_affine",
         "route": "cuda",
@@ -1883,6 +1915,342 @@ def main_path_warps(fipm, warp_kernel, W, scene, pattern, cfg, dev, plan,
     return max_err, rows
 
 
+def native_phase(fipm, dev, smi, gxx_s):
+    """Phase 18: the native host library (built in phase 2, in gxx_s
+    seconds of g++): the BMP codec against its numpy twin, threaded
+    against sequential decode through FileSource, inspect_corpus over a
+    FolderSource of BMPs."""
+    import torch
+    from fastest_image_pattern_matching_tpu_torch import native
+    from fastest_image_pattern_matching_tpu_torch.native import bmp
+    from fastest_image_pattern_matching_tpu_torch.utils import imageio
+    from fastest_image_pattern_matching_tpu_torch.utils.sources import (
+        FolderSource)
+
+    if not os.path.exists(native.library_path()) or native._LIB is None:
+        raise AssertionError("[18 native] the library was not built and "
+                             "loaded in phase 2")
+    log(f"[18 native] {os.path.relpath(native.library_path())} loaded, "
+        f"built by g++ from this checkout's source in {gxx_s:.2f} s "
+        f"(phase 2)")
+    with tempfile.TemporaryDirectory() as tmp:
+        img = np.random.default_rng(18).integers(0, 256, (37, 53), np.uint8)
+        p = os.path.join(tmp, "codec.bmp")
+        bmp.save_gray(p, img)
+        with open(p, "rb") as f:
+            if f.read() != imageio._bmp_gray_bytes(img):
+                raise AssertionError("[18 native] the native writer's bytes "
+                                     "differ from the numpy twin's")
+        for got in (bmp.load_gray(p), imageio._bmp_gray(p),
+                    imageio.load_gray(p)):
+            if not np.array_equal(got, img):
+                raise AssertionError("[18 native] a BMP read differs")
+        log("[18 native] codec: native write byte-equal to the numpy twin, "
+            "native and numpy reads pixel-equal")
+
+        stpl = stream_template()
+        sframes, centres = stream_frames(stpl, 24)
+        fframes = flagship_batch()[0]
+        folders = {}
+        for name, frames in (("480x640", sframes), ("4024x3036", fframes)):
+            d = os.path.join(tmp, name)
+            os.makedirs(d)
+            for i, f in enumerate(frames):
+                bmp.save_gray(os.path.join(d, f"{i:03d}.bmp"), f)
+            folders[name] = d
+            ms = {}
+            for n_threads in (1, 4, 1, 4):
+                t0 = time.perf_counter()
+                got = list(FolderSource(d, n_threads=n_threads))
+                ms.setdefault(n_threads, []).append(
+                    (time.perf_counter() - t0) * 1e3 / len(frames))
+                if len(got) != len(frames) or not all(
+                        np.array_equal(a, b) for a, b in zip(got, frames)):
+                    raise AssertionError(f"[18 native] {name}: frames "
+                                         f"decoded on {n_threads} threads "
+                                         "differ")
+            log(f"[18 native] FileSource over {len(frames)} {name} BMPs, ms "
+                f"per frame (two runs each, in turns): 1 thread "
+                f"{ms[1]}, 4 threads {ms[4]}; frames equal")
+        del fframes
+
+        scfg = fipm.MatchConfig(max_pos=1, score=0.6, tolerance_angle=15.0)
+        spat = fipm.learn_pattern(stpl, 256, device=dev)
+        reports, ms = {}, {}
+        for n_threads in (4, 1, 4, 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            reports[n_threads] = list(fipm.inspect_corpus(
+                FolderSource(folders["480x640"], n_threads=n_threads), spat,
+                scfg, batch_size=8, device=dev))
+            ms.setdefault(n_threads, []).append(
+                (time.perf_counter() - t0) * 1e3 / len(sframes))
+        a, b = reports[1], reports[4]
+        if [r.index for r in a] != [r.index for r in b] or any(
+                [(m.score, m.pos_x, m.pos_y, m.angle) for m in x.results]
+                != [(m.score, m.pos_x, m.pos_y, m.angle) for m in y.results]
+                for x, y in zip(a, b)):
+            raise AssertionError("[18 native] inspect_corpus reports differ "
+                                 "between 1 and 4 decode threads")
+        worst = max(check_found(f"[18 native] frame {r.index}", r.results,
+                                [c], 1.0, 1.0, 0.6)
+                    for r, c in zip(a, centres))
+        log(f"[18 native] inspect_corpus over FolderSource of the 24 "
+            f"480x640 BMPs, wall ms per frame (decode included, first run a "
+            f"warm-up): 4 threads {ms[4]}, 1 thread {ms[1]}; reports equal, "
+            f"target in every frame, at most {worst:.3f} px off ({smi})")
+    if bmp.FALLBACKS:
+        raise AssertionError(f"[18 native] {bmp.FALLBACKS} fallbacks to the "
+                             "numpy codec")
+    log("[18 native] no fallback to the numpy codec")
+
+
+def profiling_phase(fipm, dev, smi, single):
+    """Phase 19: StageTimer's split of the flagship's stages against the
+    same stages timed with CUDA events, and device_trace's Chrome trace."""
+    import torch
+    from fastest_image_pattern_matching_tpu_torch.models import (
+        template_matcher as tm)
+    from fastest_image_pattern_matching_tpu_torch.ops.pyramid import (
+        build_pyramid)
+    from fastest_image_pattern_matching_tpu_torch.utils.profiling import (
+        StageTimer, device_trace)
+
+    scene, templ, _ = flagship_scene()
+    cfg = flagship_config(fipm)
+    pattern = fipm.learn_pattern(templ, 256, device=dev)
+    fipm.match(scene, pattern, cfg, device=dev)
+    events, timers = [], []
+    for _ in range(3):
+        events.append(stage_times(tm, build_pyramid, scene, pattern, cfg,
+                                  dev))
+        timers.append(stage_times(tm, build_pyramid, scene, pattern, cfg,
+                                  dev, timer=StageTimer()))
+    rows, bad = [], []
+    for k in events[0]:
+        ev = [e[k] for e in events]
+        ti = statistics.median(t[k] for t in timers)
+        e_med = statistics.median(ev)
+        # The run's noise: the events' own spread, a millisecond of host
+        # jitter, or a quarter of the stage.
+        tol = max(3 * (max(ev) - min(ev)), 1.0, 0.25 * e_med)
+        rows.append(f"{k} {ti:.3f}/{e_med:.3f}/{single['stage_ms'][k]:.3f}")
+        if abs(ti - e_med) > tol:
+            bad.append((k, ti, e_med, tol))
+    log("[19 profiling] stage ms, StageTimer / CUDA events (medians of 3, "
+        "in turns) / phase 4's events: " + ", ".join(rows) + f" ({smi})")
+    if bad:
+        raise AssertionError(f"[19 profiling] StageTimer's split is off the "
+                             f"events' beyond the noise: {bad}")
+    with tempfile.TemporaryDirectory() as tmp:
+        with device_trace(tmp):
+            fipm.match(scene, pattern, cfg, device=dev)
+            torch.cuda.synchronize()
+        with open(os.path.join(tmp, "trace.json")) as f:
+            trace = json.load(f)
+        names = [e.get("name", "") for e in trace["traceEvents"]]
+        n_warp = sum("warp_affine_kernel" in n for n in names)
+        log(f"[19 profiling] device_trace: {len(names)} trace events, "
+            f"{n_warp} of the warp kernel (warp_affine_kernel)")
+        if not n_warp:
+            raise AssertionError("[19 profiling] the trace does not name the "
+                                 "warp kernel")
+
+
+def distributed_phase(fipm, warp_kernel, corr_kernel, dev, smi):
+    """Phase 20: the sharded entry points under NCCL at world size 1,
+    each against its unsharded twin, with the kernels launched on the
+    sharded path. Returns the warp kernel's launches of the sharded
+    flagship batch and the correlation kernel's of the sharded Test7
+    batch."""
+    import torch
+    import torch.distributed as dist
+    from fastest_image_pattern_matching_tpu_torch.models.batch import (
+        _results_from_arrays)
+    from fastest_image_pattern_matching_tpu_torch.models.multi_template \
+        import LabeledMatch, read_string
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    fipm.init_distributed("nccl", f"tcp://127.0.0.1:{port}", 1, 0)
+    try:
+        mesh = fipm.make_mesh((1, 1))
+        dmesh = fipm.make_data_mesh()
+        log(f"[20 distributed] NCCL world 1 at tcp://127.0.0.1:{port}: mesh "
+            f"{mesh.shape} on {mesh.device}, data mesh {dmesh.shape}, backend "
+            f"{dist.get_backend()}")
+        walls = {}
+
+        def twin(tag, sharded, unsharded, n=5):
+            """Walls of n runs each after a warm-up, in turns (sharded,
+            unsharded, unsharded, sharded, ...)."""
+            runs = {sharded: [], unsharded: []}
+            sharded()
+            unsharded()
+            for i in range(n):
+                for run in ((sharded, unsharded) if i % 2 == 0
+                            else (unsharded, sharded)):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    run()
+                    torch.cuda.synchronize()
+                    runs[run].append((time.perf_counter() - t0) * 1e3)
+            s, u = (statistics.median(runs[r]) for r in (sharded, unsharded))
+            walls[tag] = (s, u)
+            log(f"{tag} wall ms in turns ({n} runs each after warm-up): "
+                f"sharded median {s:.2f}, all "
+                f"{[round(w, 2) for w in runs[sharded]]}; unsharded median "
+                f"{u:.2f}, all {[round(w, 2) for w in runs[unsharded]]} "
+                f"({smi})")
+            # The host time inside the mesh's gathers of one sharded call
+            # (NCCL at world 1: the collectives' own cost).
+            spent = []
+            gather = type(mesh).all_gather
+
+            def timed(self, *a, **k):
+                t0 = time.perf_counter()
+                try:
+                    return gather(self, *a, **k)
+                finally:
+                    spent.append(time.perf_counter() - t0)
+
+            type(mesh).all_gather = timed
+            try:
+                torch.cuda.synchronize()
+                sharded()
+                torch.cuda.synchronize()
+            finally:
+                type(mesh).all_gather = gather
+            log(f"{tag} one sharded call: {len(spent)} gathers, "
+                f"{1e3 * sum(spent):.3f} ms of host time in them ({smi})")
+
+        # The flagship batch (phase 10).
+        frames, templ, _ = flagship_batch()
+        cfg = flagship_config(fipm)
+        pattern = fipm.learn_pattern(templ, 256, device=dev)
+        want = fipm.match_many_arrays(frames, pattern, cfg, device=dev)
+        warp_kernel.LAUNCHES = 0
+        got = fipm.match_batch_sharded(frames, pattern, cfg, mesh)
+        torch.cuda.synchronize()
+        warp_launches = warp_kernel.LAUNCHES
+        for i in range(frames.shape[0]):
+            same_results(f"[20 distributed] flagship frame {i}",
+                         {k: v[i] for k, v in got.items()},
+                         {k: v[i] for k, v in want.items()}, 1e-6, 1e-5)
+        log(f"[20 distributed] match_batch_sharded on the 4-frame flagship "
+            f"batch equal to match_many_arrays (valid masks; score 1e-6, "
+            f"centre and angle 1e-5), {int(got['valid'].sum())} matches; "
+            f"warp kernel launches {warp_launches}")
+        if warp_launches <= 0:
+            raise AssertionError("[20 distributed] the sharded flagship "
+                                 "batch never launched the warp kernel")
+        twin("[20 distributed] flagship batch", lambda: fipm.
+             match_batch_sharded(frames, pattern, cfg, mesh), lambda: fipm.
+             match_many_arrays(frames, pattern, cfg, device=dev))
+        del frames
+        torch.cuda.empty_cache()
+
+        # Test7 as a batch of two (phase 11).
+        s7, t7, truth7 = many_target_scene(3648, 100)
+        s8, _, truth8 = many_target_scene(3648, 100, seed=8, templ=t7)
+        mframes = np.stack([s7, s8])
+        mcfg = many_target_config(fipm, 100)
+        mpat = fipm.learn_pattern(t7, mcfg.min_reduce_area, device=dev)
+        want = fipm.match_many_arrays(mframes, mpat, mcfg, device=dev)
+        corr_kernel.LAUNCHES = 0
+        got = fipm.match_batch_sharded(mframes, mpat, mcfg, mesh)
+        torch.cuda.synchronize()
+        corr_launches = corr_kernel.LAUNCHES
+        for i in range(2):
+            same_results(f"[20 distributed] Test7 frame {i}",
+                         {k: v[i] for k, v in got.items()},
+                         {k: v[i] for k, v in want.items()}, 1e-6, 1e-5)
+        log(f"[20 distributed] match_batch_sharded on Test7's batch of two "
+            f"equal to match_many_arrays, {got['valid'].sum(1).tolist()} "
+            f"washers; correlation kernel launches {corr_launches}")
+        if got["valid"].sum() != len(truth7) + len(truth8) \
+                or corr_launches <= 0:
+            raise AssertionError("[20 distributed] the sharded Test7 batch "
+                                 "lost washers or launched no correlation")
+        twin("[20 distributed] Test7 batch", lambda: fipm.
+             match_batch_sharded(mframes, mpat, mcfg, mesh), lambda: fipm.
+             match_many_arrays(mframes, mpat, mcfg, device=dev))
+        del mframes, s7, s8
+        torch.cuda.empty_cache()
+
+        # ORB over phase 16's frames.
+        ocfg = fipm.ORBConfig()
+        otempl = orb_template((200, 200), 51)  # phase 15's small pair's
+        oframes, _ = orb_frames(otempl)
+        want = fipm.orb_match_many(oframes, otempl, ocfg, device=dev)
+        got = fipm.orb_match_many_sharded(oframes, otempl, ocfg, mesh=dmesh)
+        for i, (g, w) in enumerate(zip(got, want)):
+            orb_same(f"[20 distributed] orb frame {i}", g, w)
+        log(f"[20 distributed] orb_match_many_sharded equal to "
+            f"orb_match_many field by field on {len(want)} frames "
+            f"(inliers {[r.num_inliers for r in got]})")
+        twin("[20 distributed] orb batch", lambda: fipm.
+             orb_match_many_sharded(oframes, otempl, ocfg, mesh=dmesh),
+             lambda: fipm.orb_match_many(oframes, otempl, ocfg, device=dev))
+
+        # The OCR plate (phase 13).
+        plate, _ = ocr_plate()
+        gcfg = ocr_config(fipm)
+        labels = list(FONT_5X7)
+        pats = [fipm.learn_pattern(glyph(ch), gcfg.min_reduce_area,
+                                   device=dev) for ch in labels]
+        want = fipm.match_patterns(plate, pats, gcfg, device=dev)
+        got = fipm.match_patterns_sharded(plate, pats, gcfg, mesh=dmesh)
+        found = []
+        for ch, p, g, w in zip(labels, pats, got, want):
+            same_results(f"[20 distributed] glyph {ch}", g, w, 1e-6, 1e-5)
+            found += [LabeledMatch(ch, r) for r in _results_from_arrays(
+                {k: v[None] for k, v in g.items()}, 0, p)]
+        text = read_string(found, gcfg.score)
+        log(f"[20 distributed] match_patterns_sharded equal to "
+            f"match_patterns on {len(pats)} glyphs; read {text!r}")
+        if text != "M12X05":
+            raise AssertionError(f"[20 distributed] read {text!r}")
+        twin("[20 distributed] ocr plate", lambda: fipm.
+             match_patterns_sharded(plate, pats, gcfg, mesh=dmesh),
+             lambda: fipm.match_patterns(plate, pats, gcfg, device=dev))
+
+        # The corpus stream (phase 14).
+        stpl = stream_template()
+        sframes, _ = stream_frames(stpl, 24)
+        straggler, _ = stream_frames(stpl, 1, hw=(400, 600), seed=6)
+        corpus = list(sframes) + [straggler[0]]
+        scfg = fipm.MatchConfig(max_pos=1, score=0.6, tolerance_angle=15.0)
+        spat = fipm.learn_pattern(stpl, 256, device=dev)
+        sharded = lambda: list(fipm.inspect_corpus(
+            corpus, spat, scfg, mesh=mesh, batch_size=8))
+        unsharded = lambda: list(fipm.inspect_corpus(
+            corpus, spat, scfg, batch_size=8, device=dev))
+        a, b = sharded(), unsharded()
+        if [r.index for r in a] != [r.index for r in b] or any(
+                len(x.results) != len(y.results) or any(
+                    abs(m.score - n.score) > 1e-6
+                    or abs(m.pos_x - n.pos_x) > 1e-5
+                    or abs(m.pos_y - n.pos_y) > 1e-5
+                    or abs(m.angle - n.angle) > 1e-5
+                    for m, n in zip(x.results, y.results))
+                for x, y in zip(a, b)):
+            raise AssertionError("[20 distributed] inspect_corpus(mesh=...) "
+                                 "differs from phase 14's")
+        log(f"[20 distributed] inspect_corpus(mesh=...) equal to the "
+            f"unsharded reports on {len(corpus)} frames")
+        twin("[20 distributed] corpus stream", sharded, unsharded)
+        log("[20 distributed] wall ms, sharded at world 1 / unsharded "
+            "(medians of 5, in turns): " + ", ".join(
+                f"{k.split('] ')[1]} {s:.2f}/{u:.2f} ({s / u:.3f}x)"
+                for k, (s, u) in walls.items()) + f" ({smi})")
+    finally:
+        dist.destroy_process_group()
+    log("[20 distributed] process group destroyed")
+    return warp_launches, corr_launches
+
+
 def profile_match(tag, run, smi, runs=3, frames=1):
     """torch.profiler over `runs` calls of one end-to-end path after its
     warm-up: the device's busy share of the wall time (union of the device
@@ -1977,10 +2345,12 @@ def card_vs_cpu(tag, tm, scene, pattern, cfg, dev, n_targets, score_atol):
                              "the CPU")
 
 
-def stage_times(tm, build_pyramid, scene, pattern, cfg, dev):
-    """Per-stage CUDA-event times of one call, composed from the same
-    stage functions match() and match_many() run; `scene` is one image or
-    a stack of frames [N, H, W]."""
+def stage_times(tm, build_pyramid, scene, pattern, cfg, dev, timer=None):
+    """Per-stage times of one call, composed from the same stage functions
+    match() and match_many() run; `scene` is one image or a stack of
+    frames [N, H, W]. CUDA events between the stages, or with `timer` (a
+    utils/profiling.py::StageTimer) its stages, each ended by a device
+    synchronise; returns the {stage: ms} split."""
     import torch
     from fastest_image_pattern_matching_tpu_torch.models import batch
     if scene.ndim == 3:
@@ -1997,25 +2367,37 @@ def stage_times(tm, build_pyramid, scene, pattern, cfg, dev):
         e.record()
         marks.append((name, e))
 
+    @contextlib.contextmanager
+    def stage(name):
+        if timer is None:
+            yield
+            mark(name)
+        else:
+            with timer.stage(name, sync=src):
+                yield
+
     torch.cuda.synchronize()
     mark("start")
-    pyr = build_pyramid(st.prep_src(src), plan.top)
-    mark("pyramid")
-    vals, locs = st.sweep_maps(pyr[plan.top], templs[plan.top], inv_mats,
-                               valid_wh)
-    mark("sweep")
-    pt, ang, score, alive = st.select_candidates(vals, locs, trans, angles)
-    ptLT, ang, fidx = st.unrotate(pt, ang)
-    score, alive = score.reshape(-1), alive.reshape(-1)
-    mark("select")
+    with stage("pyramid"):
+        pyr = build_pyramid(st.prep_src(src), plan.top)
+    with stage("sweep"):
+        vals, locs = st.sweep_maps(pyr[plan.top], templs[plan.top], inv_mats,
+                                   valid_wh)
+    with stage("select"):
+        pt, ang, score, alive = st.select_candidates(vals, locs, trans,
+                                                     angles)
+        ptLT, ang, fidx = st.unrotate(pt, ang)
+        score, alive = score.reshape(-1), alive.reshape(-1)
     for l in range(plan.top - 1, plan.stop - 1, -1):
-        ptLT, ang, score, alive, fidx = st.descend_range(
-            pyr, templs, ptLT, ang, score, alive, fidx, l, l)
-        mark(f"descend_L{l}")
+        with stage(f"descend_L{l}"):
+            ptLT, ang, score, alive, fidx = st.descend_range(
+                pyr, templs, ptLT, ang, score, alive, fidx, l, l)
     scale = 1.0 if plan.stop == 0 else 2.0
-    st.finalize(ptLT * scale, ang, score, alive, fidx, src.shape[0])
-    mark("finalize")
+    with stage("finalize"):
+        st.finalize(ptLT * scale, ang, score, alive, fidx, src.shape[0])
     torch.cuda.synchronize()
+    if timer is not None:
+        return timer.summary()
     return {name: prev.elapsed_time(e)
             for (_, prev), (name, e) in zip(marks, marks[1:])}
 

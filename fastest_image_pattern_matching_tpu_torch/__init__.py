@@ -12,6 +12,9 @@ inspect_corpus) run through the same pipeline with frames as its leading
 axis; glyph sets through match_patterns and MultiTemplateMatcher. ORB
 feature matching (orb_match, orb_match_many) is the secondary path, and
 `python -m fastest_image_pattern_matching_tpu_torch.cli` the command line.
+Several processes (one per GPU, torch.distributed) share a batch through
+init_distributed, make_mesh and match_batch_sharded, and the serving paths
+through make_data_mesh, orb_match_many_sharded and match_patterns_sharded.
 
 The pyramid and the top-layer correlation are exact in f32 only without
 TF32, so importing the package turns TF32 off for matmuls and cuDNN.
@@ -32,6 +35,10 @@ from .models.batch import (BatchMatcher, match_many, match_many_arrays,
 from .models.multi_template import MultiTemplateMatcher
 from .models.corpus import inspect_corpus
 from .models.orb import ORBConfig, ORBResult, orb_match, orb_match_many
+from .parallel.matcher import match_batch_sharded
+from .parallel.mesh import init_distributed, make_mesh
+from .parallel.serving import (make_data_mesh, match_patterns_sharded,
+                               orb_match_many_sharded)
 
 __all__ = [
     "MatchConfig", "LearnedPattern", "MatchResult", "TemplateMatcher",
@@ -39,5 +46,7 @@ __all__ = [
     "match_template", "pattern_from_reference", "BatchMatcher",
     "match_many", "match_many_arrays", "match_patterns",
     "MultiTemplateMatcher", "inspect_corpus", "ORBConfig", "ORBResult",
-    "orb_match", "orb_match_many",
+    "orb_match", "orb_match_many", "match_batch_sharded", "make_mesh",
+    "init_distributed", "orb_match_many_sharded", "match_patterns_sharded",
+    "make_data_mesh",
 ]

@@ -165,6 +165,64 @@ class BatchMatcher:
 # Template-axis batching (glyph sets / OCR).
 # ---------------------------------------------------------------------------
 
+def _pattern_groups(patterns: Sequence[LearnedPattern]
+                    ) -> Dict[tuple, List[int]]:
+    """Pattern indices grouped by (pyramid shapes, flat-template flags,
+    border color), which fix the plan."""
+    groups: Dict[tuple, List[int]] = {}
+    for i, p in enumerate(patterns):
+        key = (tuple(p.shapes),
+               tuple(bool(lv.result_equal1) for lv in p.levels),
+               p.border_color)
+        groups.setdefault(key, []).append(i)
+    return groups
+
+
+def _source_pyramid(src, patterns: Sequence[LearnedPattern],
+                    cfg: MatchConfig, dev):
+    """One host source [H, W] as a u8-checked array and its pyramid on
+    `dev`, deep enough for every pattern."""
+    if not torch.is_tensor(src):
+        src = np.asarray(src)
+    if src.ndim == 3:
+        from ..utils.imageio import ensure_gray
+        src = ensure_gray(src)
+    _check_u8(src)
+    frames = upload_frames(src[None], dev)
+    return src, build_pyramid(_prep_src(frames, cfg),
+                              max(p.top_layer for p in patterns))
+
+
+def _match_group(pyr, src_hw, group: Sequence[LearnedPattern],
+                 cfg: MatchConfig, dev):
+    """Patterns of one plan against the source pyramid, the sweep canvases
+    computed once for all. Returns the plan and the packed results
+    [G, max_pos + 1, 13] on `dev`."""
+    plan, _, (_, *sweep) = _plan_inputs(src_hw, group[0], cfg, dev)
+    canvases = None
+    packed = []
+    for p in group:
+        stats, templs = _pattern_inputs(p, dev)
+        st = build_stages(plan, stats, dev)
+        if canvases is None:
+            canvases = st.sweep_canvases(pyr[plan.top], sweep[0])
+        out = st.match_from_pyr(pyr[:plan.top + 1], templs, *sweep,
+                                canvases=canvases)
+        packed.append(_pack_result(out, cfg.max_pos))
+    return plan, torch.cat(packed)
+
+
+def _unpack_group(packed: np.ndarray, plan, src, patterns, idxs, cfg,
+                  dev, results) -> None:
+    """Results of the patterns idxs from their packed rows; a pattern over
+    the NMS cap runs again alone, uncapped."""
+    for k, i in enumerate(idxs):
+        out = _unpack_result(packed[k])
+        if out.pop("nms_overflow") and plan.nms_cap < plan.c_max:
+            out = match_arrays(src, patterns[i], cfg, device=dev)
+        results[i] = out
+
+
 def match_patterns(src, patterns: Sequence[LearnedPattern],
                    cfg: Optional[MatchConfig] = None, device=None
                    ) -> List[Dict[str, np.ndarray]]:
@@ -182,42 +240,14 @@ def match_patterns(src, patterns: Sequence[LearnedPattern],
     """
     cfg = cfg or MatchConfig()
     dev = resolve_device(device)
-    if not torch.is_tensor(src):
-        src = np.asarray(src)
-    if src.ndim == 3:
-        from ..utils.imageio import ensure_gray
-        src = ensure_gray(src)
-    _check_u8(src)
-    groups: Dict[tuple, List[int]] = {}
-    for i, p in enumerate(patterns):
-        key = (tuple(p.shapes),
-               tuple(bool(lv.result_equal1) for lv in p.levels),
-               p.border_color)
-        groups.setdefault(key, []).append(i)
+    groups = _pattern_groups(patterns)
     if not groups:
         return []
-    frames = upload_frames(src[None], dev)
-    pyr = build_pyramid(_prep_src(frames, cfg),
-                        max(p.top_layer for p in patterns))
-
+    src, pyr = _source_pyramid(src, patterns, cfg, dev)
     results: List[Optional[Dict[str, np.ndarray]]] = [None] * len(patterns)
     for idxs in groups.values():
-        plan, _, (_, *sweep) = _plan_inputs(src.shape, patterns[idxs[0]],
-                                            cfg, dev)
-        canvases = None
-        packed = []
-        for i in idxs:
-            stats, templs = _pattern_inputs(patterns[i], dev)
-            st = build_stages(plan, stats, dev)
-            if canvases is None:
-                canvases = st.sweep_canvases(pyr[plan.top], sweep[0])
-            out = st.match_from_pyr(pyr[:plan.top + 1], templs, *sweep,
-                                    canvases=canvases)
-            packed.append(_pack_result(out, cfg.max_pos))
-        packed = torch.cat(packed).cpu().numpy()
-        for k, i in enumerate(idxs):
-            out = _unpack_result(packed[k])
-            if out.pop("nms_overflow") and plan.nms_cap < plan.c_max:
-                out = match_arrays(src, patterns[i], cfg, device=dev)
-            results[i] = out
+        plan, packed = _match_group(pyr, src.shape,
+                                    [patterns[i] for i in idxs], cfg, dev)
+        _unpack_group(packed.cpu().numpy(), plan, src, patterns, idxs, cfg,
+                      dev, results)
     return results

@@ -2,10 +2,9 @@
 the port of fastest_image_pattern_matching_tpu/models/corpus.py.
 
 Equal-shaped frames are batched through models/batch.py (the frames of a
-batch share the pipeline's launches); a frame of another shape ends the
-current batch and starts its own. The JAX package's `mesh` argument (the
-sharded matcher) has no counterpart until the port has its multi-GPU
-path, so there is none here.
+batch share the pipeline's launches), or through the sharded matcher
+(parallel/matcher.py) when a mesh is given; a frame of another shape ends
+the current batch and starts its own.
 """
 
 from __future__ import annotations
@@ -17,6 +16,7 @@ from typing import Iterable, Iterator, List, Optional
 import numpy as np
 
 from ..config import MatchConfig
+from ..parallel.matcher import match_batch_sharded
 from ..types import LearnedPattern, MatchResult
 from ..utils.device import resolve_device
 from .batch import _next_bucket, _results_from_arrays, match_many_arrays
@@ -33,17 +33,22 @@ def inspect_corpus(
     frames: Iterable[np.ndarray],
     pattern: LearnedPattern,
     cfg: Optional[MatchConfig] = None,
+    mesh=None,
     batch_size: int = 8,
     device=None,
 ) -> Iterator[FrameReport]:
     """Yield a FrameReport per frame, in order.
 
     Equal-shaped frames are grouped into batches of batch_size, each
-    matched as one batch; an odd-shaped straggler forms its own (smaller)
-    batch. execution_ms is the batch's wall time divided by its frames.
+    matched as one batch: through parallel/matcher.py::match_batch_sharded
+    on the mesh's device when a mesh is given (every rank of the mesh
+    iterates the same frames and gets every report), through
+    models/batch.py on `device` when not. An odd-shaped straggler forms
+    its own (smaller) batch. execution_ms is the batch's wall time divided
+    by its frames.
     """
     cfg = cfg or MatchConfig()
-    dev = resolve_device(device)
+    dev = None if mesh is not None else resolve_device(device)
     buf: List[np.ndarray] = []
     idx: List[int] = []
 
@@ -52,9 +57,13 @@ def inspect_corpus(
         if not buf:
             return
         t0 = time.perf_counter()
-        out = match_many_arrays(
-            np.stack(buf), pattern, cfg,
-            batch_bucket=min(batch_size, _next_bucket(len(buf))), device=dev)
+        if mesh is not None:
+            out = match_batch_sharded(np.stack(buf), pattern, cfg, mesh)
+        else:
+            out = match_many_arrays(
+                np.stack(buf), pattern, cfg,
+                batch_bucket=min(batch_size, _next_bucket(len(buf))),
+                device=dev)
         ms = (time.perf_counter() - t0) * 1000 / len(buf)
         for k, i in enumerate(idx):
             yield FrameReport(i, _results_from_arrays(out, k, pattern), ms)

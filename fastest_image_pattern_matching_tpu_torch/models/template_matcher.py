@@ -246,7 +246,7 @@ def _prep_src(src: torch.Tensor, cfg: MatchConfig) -> torch.Tensor:
     return src
 
 
-def build_stages(plan: _Plan, stats, device):
+def build_stages(plan: _Plan, stats, device, narrow_hook=None):
     """The pipeline stage functions for a static plan on `device`.
 
     Frames are the leading axis of every stage: the source pyramid holds
@@ -256,7 +256,14 @@ def build_stages(plan: _Plan, stats, device):
 
     stats: per level (mean, norm, inv_area, result_equal1) as Python
     values. Returns a namespace of the stage functions; match_fn composes
-    them."""
+    them.
+
+    narrow_hook: optional fn(ptLT, ang, score, alive, fidx) -> alive, used
+    by the sharded matcher (parallel/matcher.py), whose ranks each hold a
+    part of every frame's candidates: with cfg.narrow_candidates it keeps
+    each frame's global top scorers by masking `alive` (a collective)
+    instead of cutting the local candidates, so shapes stay equal on every
+    rank and the kept set is the unsharded one."""
     dev = torch.device(device)
     cfg = plan.cfg
     thr = torch.tensor(plan.layer_scores, dtype=torch.float32, device=dev)
@@ -484,6 +491,20 @@ def build_stages(plan: _Plan, stats, device):
         return torch.cat([ptLT, ang[..., None], score[..., None],
                           alive.to(torch.float32)[..., None]], dim=-1)
 
+    def narrow(cands, n_frames):
+        """Each frame's candidates cut to its top cl scorers, ties broken
+        by (score desc, y, x, angle), the finalize order."""
+        per_frame = cands[0].shape[0] // n_frames
+        cl = min(per_frame, max(2 * cfg.max_pos + 4, 16))
+        if cl >= per_frame:
+            return cands
+        grp = _by_frame(cands[4], n_frames)
+        p, a, s, al = (x[grp] for x in cands[:4])
+        key = torch.where(al, s, -2.0)
+        o = _lexsort((a, p[..., 0], p[..., 1], -key))[:, :cl]
+        sel = _rows(grp, o).reshape(-1)
+        return tuple(x[sel] for x in cands)
+
     def descend_range(pyr, templs, ptLT, ang, score, alive, fidx, l_from,
                       l_to):
         """Pyramid descent over layers l_from..l_to (inclusive, downward)
@@ -506,15 +527,10 @@ def build_stages(plan: _Plan, stats, device):
             # large layers; ties broken by (score desc, y, x, angle), the
             # finalize order.
             if cfg.narrow_candidates and th_l * tw_l > 4096:
-                per_frame = cands[0].shape[0] // n_frames
-                cl = min(per_frame, max(2 * cfg.max_pos + 4, 16))
-                if cl < per_frame:
-                    grp = _by_frame(cands[4], n_frames)
-                    p, a, s, al = (x[grp] for x in cands[:4])
-                    key = torch.where(al, s, -2.0)
-                    o = _lexsort((a, p[..., 0], p[..., 1], -key))[:, :cl]
-                    sel = _rows(grp, o).reshape(-1)
-                    cands = tuple(x[sel] for x in cands)
+                if narrow_hook is not None:
+                    cands = cands[:3] + (narrow_hook(*cands),) + cands[4:]
+                else:
+                    cands = narrow(cands, n_frames)
             ptLT, ang, score, alive, fidx = descend_layer(
                 l, pyr[l], templs[l], *cands)
         return ptLT, ang, score, alive, fidx

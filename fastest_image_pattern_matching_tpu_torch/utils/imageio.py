@@ -3,12 +3,14 @@ grayscale file loading and saving (the port of
 `fastest_image_pattern_matching_tpu/utils/imageio.py::ensure_gray`,
 `load_gray` and `save_gray`).
 
-The JAX package decodes BMP with the C++ codec of its native library and
-other formats with cv2 or PIL. The port reads BMP in numpy (8-bit
-palettised, 24- and 32-bit, bottom-up and top-down, uncompressed: what
-that codec reads, with its BT.601 luma and rounding), so glyph sets in
-BMP load with no image library; other formats need PIL. The port takes
-no cv2 (a rule of its tests), and the card's machine has neither.
+BMP goes through the C++ codec of the port's native library (native/bmp.py)
+when it can be built, and through the numpy twin here when g++ is missing
+(each such fallback is counted in native/bmp.py::FALLBACKS); both read and
+write the same bytes. Other formats go through PIL, with the grey levels
+of OpenCV's IMREAD_GRAYSCALE, which the JAX package calls: libjpeg's own Y
+channel for JPEG, libpng's rgb-to-gray for PNG, cvtColor's weights for
+other colour sources. The port takes no cv2 (a rule of its tests), and
+the card's machine has none.
 """
 
 from __future__ import annotations
@@ -17,6 +19,8 @@ import os
 
 import numpy as np
 import torch
+
+from ..native import bmp as native_bmp
 
 
 def ensure_gray(img, channel_axis_only: bool = False):
@@ -94,13 +98,15 @@ def _bmp_gray(path: str) -> np.ndarray:
     return np.ascontiguousarray(img[::-1] if height > 0 else img)
 
 
-def load_gray(path: str) -> np.ndarray:
-    """Load an image file as 2-D u8 grayscale. BMP is decoded here; other
-    formats through PIL, which raises ImportError when it is missing."""
-    if not os.path.exists(path):
-        raise FileNotFoundError(path)
-    if path.lower().endswith(".bmp"):
-        return _bmp_gray(path)
+def _png_rgb_to_gray(rgb: np.ndarray) -> np.ndarray:
+    """libpng's png_set_rgb_to_gray(.., 0.299, 0.587) on 8-bit RGB, which
+    OpenCV's PNG decoder asks for: 15-bit weights (9797, 19234, 3737; they
+    sum to 32768, so grey pixels pass through) and a truncating shift."""
+    r, g, b = (rgb[..., i].astype(np.int64) for i in range(3))
+    return ((9797 * r + 19234 * g + 3737 * b) >> 15).astype(np.uint8)
+
+
+def _pil_gray(path: str) -> np.ndarray:
     try:
         from PIL import Image
     except ImportError as e:
@@ -108,12 +114,38 @@ def load_gray(path: str) -> np.ndarray:
         raise ImportError(f"reading {ext} images needs PIL; the port reads "
                           f"only BMP without it: {path}") from e
     with Image.open(path) as im:
-        return np.asarray(im.convert("L"))
+        if im.format == "JPEG":
+            # libjpeg hands out its own Y channel, as it does for cv2.
+            im.draft("L", im.size)
+            return np.asarray(im.convert("L"))
+        if im.mode not in ("RGB", "RGBA", "P", "PA"):
+            return np.asarray(im.convert("L"))
+        rgb = np.asarray(im.convert("RGB"))  # alpha dropped, as cv2 does
+        if im.format == "PNG":
+            return _png_rgb_to_gray(rgb)
+        # Other decoders hand OpenCV BGR, which it turns grey with
+        # cvtColor (WebP measured equal; not TIFF, which OpenCV reads
+        # through libtiff's RGBA path).
+        return ensure_gray(rgb[..., ::-1])
+
+
+def load_gray(path: str) -> np.ndarray:
+    """Load an image file as 2-D u8 grayscale: BMP through the native codec
+    (or its numpy twin without g++), other formats through PIL, which
+    raises ImportError when it is missing."""
+    if not os.path.exists(path):
+        raise FileNotFoundError(path)
+    if path.lower().endswith(".bmp"):
+        if native_bmp.available():
+            return native_bmp.load_gray(path)
+        return _bmp_gray(path)
+    return _pil_gray(path)
 
 
 def _bmp_gray_bytes(img: np.ndarray) -> bytes:
     """A 2-D u8 image as an uncompressed 8-bit BMP with a grey palette,
-    rows bottom-up and padded to 4 bytes."""
+    rows bottom-up and padded to 4 bytes: the native codec's bytes (no
+    pixels-per-metre)."""
     h, w = img.shape
     stride = (w + 3) & ~3
     rows = np.zeros((h, stride), np.uint8)
@@ -126,14 +158,15 @@ def _bmp_gray_bytes(img: np.ndarray) -> bytes:
               + data_off.to_bytes(4, "little"))
     info = b"".join(v.to_bytes(n, "little", signed=True) for v, n in (
         (40, 4), (w, 4), (h, 4), (1, 2), (8, 2), (0, 4), (rows.nbytes, 4),
-        (2835, 4), (2835, 4), (256, 4), (0, 4)))
+        (0, 4), (0, 4), (256, 4), (0, 4)))
     return header + info + palette.tobytes() + rows.tobytes()
 
 
 def save_gray(path: str, img) -> None:
     """Save a 2-D image as u8 grayscale (float input rounded and clipped
-    to [0, 255]). BMP is written here; other formats through PIL, which
-    raises ImportError when it is missing."""
+    to [0, 255]). BMP through the native codec (or its numpy twin without
+    g++); other formats through PIL, which raises ImportError when it is
+    missing."""
     img = np.asarray(img)
     if img.ndim != 2:
         raise ValueError(f"save_gray takes a 2-D image, got shape "
@@ -141,8 +174,11 @@ def save_gray(path: str, img) -> None:
     if img.dtype != np.uint8:
         img = np.clip(np.round(img), 0, 255).astype(np.uint8)
     if path.lower().endswith(".bmp"):
-        with open(path, "wb") as f:
-            f.write(_bmp_gray_bytes(img))
+        if native_bmp.available():
+            native_bmp.save_gray(path, img)
+        else:
+            with open(path, "wb") as f:
+                f.write(_bmp_gray_bytes(img))
         return
     try:
         from PIL import Image

@@ -6,9 +6,9 @@ CameraPreviewDialog over the binary DVP vendor SDK,
 src/CameraPreviewDialog.cpp:42-131, include/CameraPreviewDialog.h) is
 vendor-binary-bound; the package keeps the *abstraction*: a FrameSource
 protocol that a real grabber can implement, plus file/folder/synthetic
-sources used by the CLI and the corpus pipeline. Files are decoded by
-utils/imageio.py::load_gray, one after another (the JAX package's threaded
-native BatchLoader is not ported yet).
+sources used by the CLI and the corpus pipeline. The native threaded
+BatchLoader plays the grabber thread's role (decode on CPU threads while
+the device computes).
 """
 
 from __future__ import annotations
@@ -34,12 +34,27 @@ class FrameSource(abc.ABC):
 
 
 class FileSource(FrameSource):
-    """A fixed list of image files, decoded in order by load_gray."""
+    """A fixed list of image files in order. An all-BMP list decodes on
+    n_threads native threads (native/loader.py::BatchLoader) when the
+    native library can be built; anything else, one file after another
+    through load_gray."""
 
-    def __init__(self, paths: List[str]):
+    def __init__(self, paths: List[str], n_threads: int = 4):
         self.paths = list(paths)
+        self._n_threads = n_threads
 
     def frames(self) -> Iterator[np.ndarray]:
+        from ..native import bmp as native_bmp
+        if (self.paths and all(p.lower().endswith(".bmp") for p in self.paths)
+                and native_bmp.available()):
+            from ..native.loader import BatchLoader
+            with BatchLoader(self.paths, self._n_threads) as bl:
+                for i, p in enumerate(self.paths):
+                    img = bl.take(i)
+                    if img is None:
+                        raise ValueError(f"cannot decode BMP: {p}")
+                    yield img
+            return
         from .imageio import load_gray
         for p in self.paths:
             yield load_gray(p)
@@ -49,11 +64,12 @@ class FolderSource(FileSource):
     """All images in a directory (sorted), like batch inspection runs."""
 
     def __init__(self, directory: str,
-                 patterns=("*.bmp", "*.jpg", "*.png", "*.jpeg")):
+                 patterns=("*.bmp", "*.jpg", "*.png", "*.jpeg"),
+                 n_threads: int = 4):
         paths: List[str] = []
         for pat in patterns:
             paths.extend(glob.glob(os.path.join(directory, pat)))
-        super().__init__(sorted(paths))
+        super().__init__(sorted(paths), n_threads)
 
 
 class VideoCaptureSource(FrameSource):

@@ -9,6 +9,7 @@ read_string, inspect_corpus with a straggler, and load_gray against JAX's
 native BMP decoder. Tolerances as in tests/test_torch_batch.py.
 """
 
+import ctypes
 import struct
 
 import numpy as np
@@ -17,13 +18,14 @@ import pytest
 import fastest_image_pattern_matching_tpu as jfipm
 from fastest_image_pattern_matching_tpu.models import corpus as jcorpus
 from fastest_image_pattern_matching_tpu.models import multi_template as jmt
-from fastest_image_pattern_matching_tpu.native import get_lib
+from fastest_image_pattern_matching_tpu.native import get_lib as jax_get_lib
 from fastest_image_pattern_matching_tpu.types import MatchResult as JResult
 from fastest_image_pattern_matching_tpu.utils import imageio as jio
 
 import chip_smoke
 import fastest_image_pattern_matching_tpu_torch as tfipm
 from fastest_image_pattern_matching_tpu_torch.models import corpus as tcorpus
+from fastest_image_pattern_matching_tpu_torch.native import get_lib
 from fastest_image_pattern_matching_tpu_torch.models import (
     multi_template as tmt)
 from fastest_image_pattern_matching_tpu_torch.types import MatchResult
@@ -60,7 +62,7 @@ def _same_labeled(got, want, atol_score, atol_pos):
 @pytest.mark.parametrize("cross_nms", [False, True])
 def test_match_all_vs_jax(plate, cross_nms):
     scene, placed, cfg, jm, tm = plate
-    assert get_lib() is not None  # JAX's cross-template NMS runs its C++
+    assert jax_get_lib() is not None  # JAX's cross-template NMS runs its C++
     want = jm.match_all(scene, cross_nms=cross_nms, batched=True)
     got = tm.match_all(scene, cross_nms=cross_nms, batched=True)
     _same_labeled(got, want, 1e-5, 1e-3)
@@ -85,8 +87,9 @@ def test_match_all_batched_equals_per_glyph(plate):
 def test_cross_nms_vs_native(max_overlap):
     """The port's cross-template NMS (ops/nms.py in float64) against the
     JAX package's, which calls the C++ greedy of its native library
-    (native/src/fipm_native.cc): the same survivors."""
-    assert get_lib() is not None
+    (native/src/fipm_native.cc), and against the same greedy in the port's
+    own copy of that library: the same survivors."""
+    assert jax_get_lib() is not None
     rng = np.random.default_rng(int(max_overlap * 10) + 3)
     n = 40
     pts = rng.uniform(0, 120, (n, 2))
@@ -112,6 +115,18 @@ def test_cross_nms_vs_native(max_overlap):
     got = tmt.MultiTemplateMatcher(cfg, device="cpu")._cross_nms(tl)
     assert [m.label for m in got] == [m.label for m in want]
     assert 0 < len(got) < n
+    quads = np.array([[m.result.lt, m.result.rt, m.result.rb, m.result.lb]
+                      for m in tl], np.float64)
+    areas = [abs(np.linalg.norm(np.subtract(m.result.rt, m.result.lt))
+                 * np.linalg.norm(np.subtract(m.result.lb, m.result.lt)))
+             for m in tl]
+    alive = np.ones(n, np.uint8)
+    get_lib().fipm_filter_overlaps(
+        quads.ctypes.data_as(ctypes.POINTER(ctypes.c_double)), n,
+        alive.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+        float(np.median(areas)), max_overlap)
+    assert [m.label for m, a in zip(tl, alive) if a] == [m.label
+                                                          for m in got]
 
 
 def test_read_string_anchor_does_not_chain():
