@@ -93,6 +93,16 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      13's plate, reading "M12X05"; inspect_corpus(mesh=...) equal to phase
      14's; the wall of each sharded call beside the unsharded one (the
      collectives' and padding's cost at world 1); destroy_process_group.
+ 21. deployment packs (aot.py), the libraries bundled: the flagship (one
+     frame and bucket 4), Test7 and ORB at 480x640 (bucket 8) exported and
+     loaded in process, each equal to phases 4, 10, 7 and 16 with their
+     kernel launches; export seconds, pack sizes, load ms, first and
+     second match; then, in a copy of the package without _build/, a fresh
+     `cli aot-match --json` (matches equal to phase 17's match --json) and
+     a fresh start-up script (seconds of import torch, torch.cuda.init(),
+     the package import, AotMatcher.load, first and second match), with 0
+     nvcc runs, 0 g++ runs and 0 bundle rejects, and _build/ holding the
+     pack's libraries byte for byte.
 The last three lines of output are the kernels' JSON summary, the card's
 name and power limit, and {"ok": true, "device": {...}}. Imports nothing
 of JAX.
@@ -747,12 +757,14 @@ def main() -> int:
     warp.update(batch_phases(fipm, warp_kernel, corr_kernel, dev, smi,
                              single, many))
     orb_phases(fipm, dev, smi)
-    warp["cli_match_launches"], corr["cli_match_launches"] = cli_phase(
-        fipm, warp_kernel, corr_kernel, dev, smi)
+    (warp["cli_match_launches"], corr["cli_match_launches"]), cli_matches = \
+        cli_phase(fipm, warp_kernel, corr_kernel, dev, smi)
     native_phase(fipm, dev, smi, gxx_s)
     profiling_phase(fipm, dev, smi, single)
     warp["sharded_launches"], corr["sharded_launches"] = distributed_phase(
         fipm, warp_kernel, corr_kernel, dev, smi)
+    warp["aot_launches"], corr["aot_launches"] = aot_phase(
+        fipm, warp_kernel, corr_kernel, dev, smi, warp, corr, cli_matches)
     print(json.dumps({"kernels": [warp, corr]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
@@ -1690,7 +1702,7 @@ def cli_phase(fipm, warp_kernel, corr_kernel, dev, smi):
     on images written with save_gray to a temporary directory and with
     its settings in a temporary file; then one fresh `python -m` process.
     Returns the warp and correlation kernel launches of the in-process
-    `match` run."""
+    `match` run, and its JSON matches."""
     import contextlib
     import io
     import tempfile
@@ -1840,7 +1852,7 @@ def cli_phase(fipm, warp_kernel, corr_kernel, dev, smi):
                 os.environ.pop("FIPM_TPU_SETTINGS", None)
             else:
                 os.environ["FIPM_TPU_SETTINGS"] = old_env
-    return launches
+    return launches, got["matches"]
 
 
 def record_calls(module, name, run):
@@ -2249,6 +2261,304 @@ def distributed_phase(fipm, warp_kernel, corr_kernel, dev, smi):
         dist.destroy_process_group()
     log("[20 distributed] process group destroyed")
     return warp_launches, corr_launches
+
+
+# A fresh process: the start-up split and the build counters. argv: pack,
+# frame BMP, then "pack" (serve from the pack) or "source" with a template
+# BMP and a config's JSON (learn and match as without a pack).
+STARTUP_SCRIPT = r"""
+import json, sys, time
+t0 = time.perf_counter()
+import torch
+t1 = time.perf_counter()
+torch.cuda.init()
+t2a = time.perf_counter()
+torch.zeros(1, device="cuda")
+t2 = time.perf_counter()
+import fastest_image_pattern_matching_tpu_torch as fipm
+from fastest_image_pattern_matching_tpu_torch import aot, native
+from fastest_image_pattern_matching_tpu_torch.ops.cuda import build
+from fastest_image_pattern_matching_tpu_torch.utils.imageio import load_gray
+t3 = time.perf_counter()
+if sys.argv[3] == "pack":
+    step = "AotMatcher.load"
+    m = fipm.AotMatcher.load(sys.argv[1], device="cuda")
+    run, installed = m.match, list(m.installed)
+else:
+    step = "learn_pattern (template decode included)"
+    cfg = aot._cfg_from_json(sys.argv[5])
+    pattern = fipm.learn_pattern(load_gray(sys.argv[4]),
+                                 cfg.min_reduce_area, device="cuda")
+    run = lambda src: fipm.match(src, pattern, cfg, device="cuda")
+    installed = []
+t4 = time.perf_counter()
+src = load_gray(sys.argv[2])
+t5 = time.perf_counter()
+first = run(src)
+torch.cuda.synchronize()
+t6 = time.perf_counter()
+second = run(src)
+torch.cuda.synchronize()
+t7 = time.perf_counter()
+print(json.dumps({
+    "import torch": t1 - t0, "torch.cuda.init()": t2a - t1,
+    "CUDA context (first allocation)": t2 - t2a,
+    "package import": t3 - t2, step: t4 - t3,
+    "load_gray": t5 - t4, "first match": t6 - t5, "second match": t7 - t6,
+    "nvcc_runs": build.NVCC_RUNS, "gxx_runs": native.GXX_RUNS,
+    "bundle_rejects": aot.BUNDLE_REJECTS, "installed": installed,
+    "count": len(first),
+    "same": [(r.score, r.center) for r in first]
+            == [(r.score, r.center) for r in second]}))
+"""
+
+
+def aot_phase(fipm, warp_kernel, corr_kernel, dev, smi, warp, corr,
+              cli_matches):
+    """Phase 21: deployment packs. Exports, with the libraries bundled,
+    the flagship pack (one frame and bucket 4), Test7's and an ORB pack at
+    phase 16's shape (bucket 8); loads each in process and holds it equal
+    to the unpacked path with the kernel launches of phases 4, 10, 7 and
+    16; then copies the package without its _build/ into a temporary
+    directory and runs two fresh processes there: `cli aot-match --json`
+    on the flagship frame as a BMP (matches equal to phase 17's `match
+    --json`) and STARTUP_SCRIPT (the start-up split; nvcc and g++ runs and
+    bundle rejects must be 0). The copy's _build/ must hold the pack's
+    libraries, byte for byte, and nothing else. Last, STARTUP_SCRIPT
+    without the pack on the same copy (learn and match, the libraries
+    built from source), for the split a fresh host pays without it. Returns the warp kernel's
+    launches of the flagship pack's match and the correlation kernel's of
+    Test7's."""
+    import shutil
+    import torch
+    from fastest_image_pattern_matching_tpu_torch import aot
+    from fastest_image_pattern_matching_tpu_torch.models import (
+        template_matcher as tm)
+    from fastest_image_pattern_matching_tpu_torch.utils.imageio import (
+        save_gray)
+
+    def export(tag, fn, path, *args, **kw):
+        t0 = time.perf_counter()
+        timings = fn(path, *args, include_executables=True, device=dev, **kw)
+        secs = time.perf_counter() - t0
+        data = np.load(path)
+        libs = sorted(k for k in data.files
+                      if k.startswith("lib_") and not k.endswith("_id"))
+        log(f"[21 aot] {tag} pack: export {secs:.3f} s ("
+            + ", ".join(f"{k} {v:.4f}" for k, v in timings.items())
+            + f"), {os.path.getsize(path) / 1e6:.3f} MB, libraries "
+            f"{libs}")
+        return data
+
+    def load(tag, cls, path):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = cls.load(path, device=dev)
+        torch.cuda.synchronize()
+        log(f"[21 aot] {tag} pack: load {(time.perf_counter() - t0) * 1e3:.2f}"
+            f" ms, installed {list(getattr(m, 'installed', ()))}")
+        return m
+
+    def counted(run):
+        """run() with both kernels' counts set to 0 just before; returns
+        (result, ms, warp launches, correlation launches)."""
+        torch.cuda.synchronize()
+        warp_kernel.LAUNCHES = corr_kernel.LAUNCHES = 0
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        return (out, (time.perf_counter() - t0) * 1e3, warp_kernel.LAUNCHES,
+                corr_kernel.LAUNCHES)
+
+    def same_lists(tag, got, want):
+        if len(got) != len(want):
+            raise AssertionError(f"{tag}: {len(got)} matches, unpacked "
+                                 f"{len(want)}")
+        if not got:
+            return {}
+        arrs = [{"valid": np.ones(len(x), bool),
+                 "score": np.array([r.score for r in x]),
+                 "angle": np.array([r.angle for r in x]),
+                 "center": np.array([r.center for r in x]).reshape(-1, 2)}
+                for x in (got, want)]
+        return same_results(tag, *arrs, 1e-6, 1e-5)
+
+    rejects0 = aot.BUNDLE_REJECTS
+    pkg = os.path.dirname(os.path.abspath(fipm.__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        # The flagship pack: one frame (phase 4) and a bucket of 4 (phase
+        # 10).
+        scene, templ, truth = flagship_scene()
+        cfg = flagship_config(fipm)
+        pattern = fipm.learn_pattern(templ, 256, device=dev)
+        flag_p = os.path.join(tmp, "flagship.npz")
+        data = export("flagship", fipm.export_match_pack, flag_p, pattern,
+                      cfg, scene.shape, batch_sizes=(4,))
+        m = load("flagship", fipm.AotMatcher, flag_p)
+        got, first_ms, w_first, _ = counted(lambda: m.match_arrays(scene))
+        want = tm.match_arrays(scene, pattern, cfg, device=dev)
+        d = same_results("[21 aot] flagship pack vs match_arrays", got, want,
+                         1e-6, 1e-5)
+        _, second_ms, w_launches, c_launches = counted(
+            lambda: m.match_arrays(scene))
+        log(f"[21 aot] flagship pack: {int(got['valid'].sum())} targets, "
+            f"equal to match_arrays (max |d| {d}); first match after load "
+            f"{first_ms:.2f} ms, second {second_ms:.2f} ms; warp launches "
+            f"{w_launches} (phase 4: {warp['launches']}), correlation "
+            f"{c_launches} ({smi})")
+        if not (w_launches == w_first == warp["launches"] > 0
+                and c_launches == 0 and got["valid"].sum() == len(truth)):
+            raise AssertionError("[21 aot] the flagship pack's launches or "
+                                 "targets differ from phase 4's")
+        frames, _, _ = flagship_batch()
+        many, many_ms, w_batch, _ = counted(lambda: m.match_many(frames))
+        want_many = fipm.match_many(frames, pattern, cfg, device=dev)
+        for i, (g, w) in enumerate(zip(many, want_many, strict=True)):
+            same_lists(f"[21 aot] flagship pack match_many frame {i}", g, w)
+        log(f"[21 aot] flagship pack match_many: {[len(r) for r in many]} "
+            f"targets, each frame equal to match_many; {many_ms:.2f} ms, "
+            f"warp launches {w_batch} (phase 10: {warp['batch_launches']})")
+        if w_batch != warp["batch_launches"] or m.batch_sizes != [4]:
+            raise AssertionError("[21 aot] the batch pack's launches differ "
+                                 "from phase 10's")
+        flag_libs = {k[4:]: bytes(data[k]) for k in data.files
+                     if k.startswith("lib_") and not k.endswith("_id")}
+        if sorted(flag_libs) != (["ccorr_valid", "fipm_native",
+                                  "warp_affine"] if dev.type == "cuda"
+                                 else ["fipm_native"]):
+            raise AssertionError(f"[21 aot] bundled {sorted(flag_libs)}")
+        del frames, many, want_many
+        torch.cuda.empty_cache()
+
+        # Test7's pack (phase 7).
+        t7, t7_templ, t7_truth = many_target_scene(3648, 100)
+        t7_cfg = many_target_config(fipm, 100)
+        t7_pat = fipm.learn_pattern(t7_templ, t7_cfg.min_reduce_area,
+                                    device=dev)
+        t7_p = os.path.join(tmp, "test7.npz")
+        export("Test7", fipm.export_match_pack, t7_p, t7_pat, t7_cfg,
+               t7.shape)
+        m7 = load("Test7", fipm.AotMatcher, t7_p)
+        got, t7_first, _, _ = counted(lambda: m7.match_arrays(t7))
+        _, t7_second, t7_w, t7_c = counted(lambda: m7.match_arrays(t7))
+        d = same_results("[21 aot] Test7 pack vs match_arrays", got,
+                         tm.match_arrays(t7, t7_pat, t7_cfg, device=dev),
+                         1e-6, 1e-5)
+        log(f"[21 aot] Test7 pack: {int(got['valid'].sum())} targets, equal "
+            f"to match_arrays (max |d| {d}); first match after load "
+            f"{t7_first:.2f} ms, second {t7_second:.2f} ms; correlation "
+            f"launches {t7_c} (phase 7: {corr['launches']}), warp {t7_w} "
+            f"({smi})")
+        if t7_c != corr["launches"] or got["valid"].sum() != len(t7_truth):
+            raise AssertionError("[21 aot] the Test7 pack's launches or "
+                                 "targets differ from phase 7's")
+        del t7
+        torch.cuda.empty_cache()
+
+        # The ORB pack at phase 16's shape, bucket 8.
+        otempl = orb_pairs()[0][2]
+        oframes, _ = orb_frames(otempl)
+        ocfg = fipm.ORBConfig()
+        orb_p = os.path.join(tmp, "orb.npz")
+        export("ORB", fipm.export_orb_pack, orb_p, ocfg, oframes.shape[1:],
+               otempl.shape, batch_sizes=(8,))
+        mo = load("ORB", fipm.AotOrb, orb_p)
+        omany, omany_ms, ow, oc = counted(lambda: mo.match_many(oframes,
+                                                                otempl))
+        want = fipm.orb_match_many(oframes, otempl, ocfg, device=dev)
+        for i, (g, w) in enumerate(zip(omany, want, strict=True)):
+            orb_same(f"[21 aot] ORB pack frame {i}", g, w)
+        orb_same("[21 aot] ORB pack match", mo.match(oframes[0], otempl),
+                 fipm.orb_match(oframes[0], otempl, ocfg, device=dev))
+        log(f"[21 aot] ORB pack: match_many of {len(oframes)} equal to "
+            f"orb_match_many field by field, match to orb_match; "
+            f"{omany_ms:.2f} ms; kernel launches warp {ow}, correlation {oc} "
+            f"(phase 16: none) ({smi})")
+        if ow or oc or aot.BUNDLE_REJECTS != rejects0:
+            raise AssertionError("[21 aot] ORB launched a kernel, or a "
+                                 "bundle was refused in process")
+
+        # Fresh processes against a copy of the package with no _build/.
+        copy = os.path.join(tmp, "fresh")
+        shutil.copytree(pkg, os.path.join(copy, os.path.basename(pkg)),
+                        ignore=shutil.ignore_patterns("_build",
+                                                      "__pycache__"))
+        build_dir = os.path.join(copy, os.path.basename(pkg), "_build")
+        bmp = os.path.join(tmp, "flagship.bmp")
+        save_gray(bmp, scene)
+        env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+
+        def fresh(tag, argv, from_pack=True):
+            t0 = time.perf_counter()
+            proc = subprocess.run([sys.executable] + argv, cwd=copy, env=env,
+                                  capture_output=True, text=True,
+                                  timeout=300)
+            wall = time.perf_counter() - t0
+            if proc.returncode != 0 or "refused" in proc.stderr:
+                raise AssertionError(f"[21 aot] {tag} exited "
+                                     f"{proc.returncode}: "
+                                     f"{proc.stderr[-2000:]}")
+            files = sorted(os.listdir(build_dir))
+            want_files = sorted(
+                json.loads(bytes(data[f"lib_{s}_id"]).decode())["file"]
+                for s in flag_libs)
+            if (files != want_files if from_pack
+                    else not set(files) <= set(want_files)):
+                raise AssertionError(f"[21 aot] {tag}: _build/ holds {files}"
+                                     f", the pack {want_files}")
+            for s, raw in flag_libs.items() if from_pack else ():
+                name = json.loads(bytes(data[f"lib_{s}_id"]).decode())["file"]
+                with open(os.path.join(build_dir, name), "rb") as fh:
+                    if fh.read() != raw:
+                        raise AssertionError(f"[21 aot] {tag}: {name} is "
+                                             "not the pack's library")
+            shutil.rmtree(build_dir)
+            return json.loads(proc.stdout.strip().splitlines()[-1]), wall
+
+        out, wall = fresh("aot-match", [
+            "-m", "fastest_image_pattern_matching_tpu_torch.cli", "--device",
+            dev.type, "aot-match", "-p", flag_p, "-s", bmp, "--json"])
+        keys = ("index", "score", "angle", "pos_x", "pos_y")
+        if [{k: x[k] for k in keys} for x in out["matches"]] != \
+                [{k: x[k] for k in keys} for x in cli_matches]:
+            raise AssertionError("[21 aot] the fresh aot-match's matches "
+                                 "differ from phase 17's match --json")
+        log(f"[21 aot] fresh process aot-match --json on a copy without "
+            f"_build/: {out['count']} targets, equal to phase 17's match "
+            f"--json; first match execution_ms {out['execution_ms']}; "
+            f"process wall {wall:.2f} s; _build/ afterwards: the pack's "
+            f"{len(flag_libs)} libraries, byte for byte ({smi})")
+        split, wall = fresh("start-up script", [
+            "-c", STARTUP_SCRIPT, flag_p, bmp, "pack"])
+        log("[21 aot] fresh process start-up split s: " + ", ".join(
+            f"{k} {v:.4f}" for k, v in split.items()
+            if isinstance(v, float)) + f"; process wall {wall:.2f} s; nvcc "
+            f"runs {split['nvcc_runs']}, g++ runs {split['gxx_runs']}, "
+            f"bundle rejects {split['bundle_rejects']}, installed "
+            f"{split['installed']} ({smi})")
+        if (split["nvcc_runs"], split["gxx_runs"], split["bundle_rejects"]) \
+                != (0, 0, 0) or split["count"] != len(truth) \
+                or not split["same"] \
+                or sorted(split["installed"]) != sorted(flag_libs):
+            raise AssertionError("[21 aot] the fresh process built a "
+                                 "library, refused the bundle or missed")
+        tpl_bmp = os.path.join(tmp, "template.bmp")
+        save_gray(tpl_bmp, templ)
+        cold, cold_wall = fresh("start-up script without the pack", [
+            "-c", STARTUP_SCRIPT, flag_p, bmp, "source", tpl_bmp,
+            aot._cfg_to_json(cfg)], from_pack=False)
+        log("[21 aot] fresh process without the pack, same copy: " + ", ".join(
+            f"{k} {v:.4f}" for k, v in cold.items()
+            if isinstance(v, float)) + f"; process wall {cold_wall:.2f} s "
+            f"against {wall:.2f} s from the pack; nvcc runs "
+            f"{cold['nvcc_runs']}, g++ runs {cold['gxx_runs']} ({smi})")
+        # The flagship runs the warp kernel only: one nvcc, and one g++
+        # for the BMP codec.
+        if cold["count"] != len(truth) or cold["gxx_runs"] != 1 \
+                or cold["nvcc_runs"] != (dev.type == "cuda"):
+            raise AssertionError("[21 aot] the fresh process without the "
+                                 "pack did not build from source")
+    return w_launches, t7_c
 
 
 def profile_match(tag, run, smi, runs=3, frames=1):

@@ -15,6 +15,10 @@ feature matching (orb_match, orb_match_many) is the secondary path, and
 Several processes (one per GPU, torch.distributed) share a batch through
 init_distributed, make_mesh and match_batch_sharded, and the serving paths
 through make_data_mesh, orb_match_many_sharded and match_patterns_sharded.
+Deployment packs (export_match_pack / AotMatcher, export_orb_pack /
+AotOrb) freeze one (pattern, config, frame shape, batch buckets) into a
+file that a fresh process loads and matches with, the kernels' libraries
+bundled.
 
 The pyramid and the top-layer correlation are exact in f32 only without
 TF32, so importing the package turns TF32 off for matmuls and cuDNN.
@@ -39,6 +43,7 @@ from .parallel.matcher import match_batch_sharded
 from .parallel.mesh import init_distributed, make_mesh
 from .parallel.serving import (make_data_mesh, match_patterns_sharded,
                                orb_match_many_sharded)
+from .aot import AotMatcher, AotOrb, export_match_pack, export_orb_pack
 
 __all__ = [
     "MatchConfig", "LearnedPattern", "MatchResult", "TemplateMatcher",
@@ -48,5 +53,6 @@ __all__ = [
     "MultiTemplateMatcher", "inspect_corpus", "ORBConfig", "ORBResult",
     "orb_match", "orb_match_many", "match_batch_sharded", "make_mesh",
     "init_distributed", "orb_match_many_sharded", "match_patterns_sharded",
-    "make_data_mesh",
+    "make_data_mesh", "AotMatcher", "AotOrb", "export_match_pack",
+    "export_orb_pack",
 ]

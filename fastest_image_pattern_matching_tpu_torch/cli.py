@@ -3,7 +3,7 @@ fastest_image_pattern_matching_tpu/cli.py, the replacement for the
 reference's GUI apps.
 
     python -m fastest_image_pattern_matching_tpu_torch.cli [--device cpu] \
-        {match,settings,orb,ocr,watch} ...
+        {match,settings,orb,aot-export,aot-match,ocr,watch} ...
 
 Mirrors the Qt entry's flags (-s/--source, -t/--template, src/main.cpp:29-63)
 and exposes every matching parameter of the dialogs (MatchToolDlg.cpp:108-117
@@ -15,9 +15,11 @@ as text or JSON, plus optional annotated overlay and matched-ROI dumps
 The subcommands, flags, defaults and outputs are the JAX CLI's. --device
 (default cuda) takes the place of its --platform; a CUDA device without a
 card is an error, never a quiet run on the CPU. The overlay images of
---output-image need cv2, imported only for them. Not ported: aot-export
-and aot-match (serialised XLA executables) and bench (it measures the JAX
-package).
+--output-image need cv2, imported only for them. aot-export writes a
+deployment pack (aot.py: the learned pattern, config and plans, and with
+--include-executables the kernels' and the native library's shared
+libraries); aot-match serves a frame from one. Not ported: bench (it
+measures the JAX package).
 """
 
 from __future__ import annotations
@@ -88,6 +90,34 @@ def build_parser() -> argparse.ArgumentParser:
     o.add_argument("--json", action="store_true")
     o.add_argument("--output-image", help="write side-by-side match "
                    "visualization (drawMatches equivalent)")
+
+    ae = sub.add_parser("aot-export", help="export a match pipeline to a "
+                        "pack file (deployment prewarm: fresh processes "
+                        "skip learning and, with --include-executables, "
+                        "the kernel build)")
+    ae.add_argument("-t", "--template", required=True)
+    ae.add_argument("-o", "--out", required=True, help="pack path (.npz)")
+    ae.add_argument("--source-shape", type=int, nargs=2, required=True,
+                    metavar=("H", "W"), help="inspection frame shape")
+    ae.add_argument("--batch-sizes", type=int, nargs="*", default=[],
+                    help="also export match_many programs for these "
+                    "batch buckets")
+    ae.add_argument("--max-pos", type=int, default=70)
+    ae.add_argument("--max-overlap", type=float, default=0.1)
+    ae.add_argument("--score", type=float, default=0.7)
+    ae.add_argument("--tolerance-angle", type=float, default=180.0)
+    ae.add_argument("--min-reduce-area", type=int, default=256)
+    ae.add_argument("--roi", type=int, nargs=4, metavar=("X", "Y", "W", "H"),
+                    default=None)
+    ae.add_argument("--include-executables", action="store_true",
+                    help="bundle the shared libraries the path loads on "
+                    "--device (built first if needed), so a fresh host "
+                    "with this package runs neither nvcc nor g++")
+
+    am = sub.add_parser("aot-match", help="match using an exported pack")
+    am.add_argument("-p", "--pack", required=True)
+    am.add_argument("-s", "--source", required=True)
+    am.add_argument("--json", action="store_true")
 
     oc = sub.add_parser("ocr", help="multi-template glyph matching: learn "
                         "a glyph directory, read the string in a scene "
@@ -309,6 +339,58 @@ def _cmd_orb(args, dev) -> int:
     return 0
 
 
+def _cmd_aot_export(args, dev) -> int:
+    from . import MatchConfig, export_match_pack, learn_pattern
+    from .utils.imageio import load_gray
+
+    tpl = load_gray(args.template)
+    cfg = MatchConfig(max_pos=args.max_pos, max_overlap=args.max_overlap,
+                      score=args.score, tolerance_angle=args.tolerance_angle,
+                      min_reduce_area=args.min_reduce_area)
+    pattern = learn_pattern(tpl, cfg.min_reduce_area,
+                            roi=tuple(args.roi) if args.roi else None,
+                            device=dev)
+    t0 = time.perf_counter()
+    timings = export_match_pack(args.out, pattern, cfg,
+                                tuple(args.source_shape),
+                                batch_sizes=args.batch_sizes,
+                                include_executables=args.include_executables,
+                                device=dev)
+    dt = time.perf_counter() - t0
+    print(f"exported {args.out} in {dt:.1f}s "
+          f"({', '.join(f'{k} {v:.1f}s' for k, v in timings.items())})")
+    return 0
+
+
+def _cmd_aot_match(args, dev) -> int:
+    from . import AotMatcher
+    from .utils.imageio import load_gray
+
+    # Load first: it installs the pack's native library, which decodes a
+    # .bmp source.
+    m = AotMatcher.load(args.pack, device=dev)
+    src = load_gray(args.source)
+    t0 = time.perf_counter()
+    results = m.match(src)
+    dt = (time.perf_counter() - t0) * 1000
+    if args.json:
+        print(json.dumps({
+            "execution_ms": round(dt, 2), "count": len(results),
+            "matches": [{
+                "index": i, "score": r.score, "angle": r.angle,
+                "pos_x": r.pos_x, "pos_y": r.pos_y,
+            } for i, r in enumerate(results)],
+        }))
+    else:
+        print(f"Execution time: {dt:.1f} ms (no learning; no kernel build "
+              f"when the pack bundles its libraries)")
+        print(f"Total number: {len(results)}")
+        for i, r in enumerate(results):
+            print(f"{i:>5} {r.score:>8.3f} {r.angle:>10.3f} "
+                  f"{r.pos_x:>10.3f} {r.pos_y:>10.3f}")
+    return 0
+
+
 def _cmd_ocr(args, dev) -> int:
     from .config import MatchConfig
     from .models.multi_template import MultiTemplateMatcher, read_string
@@ -443,8 +525,9 @@ def _cmd_watch(args, dev) -> int:
         time.sleep(args.interval)
 
 
-_COMMANDS = {"match": _cmd_match, "orb": _cmd_orb, "ocr": _cmd_ocr,
-             "watch": _cmd_watch}
+_COMMANDS = {"match": _cmd_match, "orb": _cmd_orb,
+             "aot-export": _cmd_aot_export, "aot-match": _cmd_aot_match,
+             "ocr": _cmd_ocr, "watch": _cmd_watch}
 
 
 def main(argv=None) -> int:

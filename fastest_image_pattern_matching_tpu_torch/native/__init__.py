@@ -4,7 +4,9 @@ the BMP codec, the threaded BatchLoader and the host peak / NMS oracles.
 g++ builds the library at first use, never on import, into `_build/`
 beside the package (listed in .gitignore). The file name carries a hash of
 the source and the flags, so an edited source is rebuilt and an unchanged
-one is loaded as it is. A failed build raises with g++'s report.
+one is loaded as it is. A failed build raises with g++'s report. A
+library built elsewhere (a deployment pack, aot.py) is put in place with
+`install` when its `library_identity` is this package's.
 """
 
 from __future__ import annotations
@@ -12,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import platform
 import shutil
 import subprocess
 import threading
@@ -23,15 +26,47 @@ BUILD_DIR = os.path.join(os.path.dirname(_DIR), "_build")
 CXX = "g++"
 CXX_FLAGS = ("-O2", "-shared", "-fPIC", "-std=c++17", "-pthread")
 
+# g++ processes started in this process.
+GXX_RUNS = 0
+
 _LOCK = threading.Lock()
 _LIB = None
 
 
-def library_path() -> str:
+def _digest() -> str:
     with open(SOURCE, "rb") as f:
-        digest = hashlib.sha256(f.read() + repr(CXX_FLAGS).encode())
-    return os.path.join(BUILD_DIR,
-                        f"libfipm_native_{digest.hexdigest()[:16]}.so")
+        return hashlib.sha256(f.read() + repr(CXX_FLAGS).encode()).hexdigest()
+
+
+def library_path() -> str:
+    return os.path.join(BUILD_DIR, f"libfipm_native_{_digest()[:16]}.so")
+
+
+def library_identity() -> dict:
+    """What the library built by this package is: the hash of the source
+    and the flags (its file name carries the first 16 hex digits) and the
+    host's machine type."""
+    return {"file": os.path.basename(library_path()), "sha256": _digest(),
+            "machine": platform.machine()}
+
+
+def install(data: bytes, identity: dict) -> str:
+    """Put a prebuilt library in place under library_path(), atomically
+    (written beside it, then os.replace); an existing file is left as it
+    is. Raises ValueError when `identity` is not library_identity().
+    Returns the path."""
+    if identity != library_identity():
+        raise ValueError(f"native library built as {identity}, this "
+                         f"package builds {library_identity()}")
+    out = library_path()
+    with _LOCK:
+        if not os.path.exists(out):
+            os.makedirs(BUILD_DIR, exist_ok=True)
+            tmp = f"{out}.{os.getpid()}.tmp"
+            with open(tmp, "wb") as f:
+                f.write(data)
+            os.replace(tmp, out)
+    return out
 
 
 def can_build() -> bool:
@@ -43,6 +78,7 @@ def build():
     """Compile the library unless it is built already. Returns (path,
     seconds spent compiling in this call); raises RuntimeError with g++'s
     report when the build fails."""
+    global GXX_RUNS
     out = library_path()
     if os.path.exists(out):
         return out, 0.0
@@ -53,6 +89,7 @@ def build():
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
     t0 = time.perf_counter()
+    GXX_RUNS += 1
     proc = subprocess.run([compiler, *CXX_FLAGS, SOURCE, "-o", tmp],
                           capture_output=True, text=True, timeout=300)
     if proc.returncode != 0:

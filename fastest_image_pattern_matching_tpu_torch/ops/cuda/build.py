@@ -6,6 +6,11 @@ into `_build/` beside them (listed in .gitignore). A library's file name
 carries a hash of its source and flags, so an edited source is rebuilt and
 an unchanged one is loaded as it is. There is no fallback: without nvcc or
 a card, building raises.
+
+A library built elsewhere (a deployment pack, aot.py) is put in place with
+`install`, under the exact name a build would give it, when its
+`library_identity` (source and flags, target arch, CUDA version) is this
+package's; the next load then runs no nvcc.
 """
 
 from __future__ import annotations
@@ -18,14 +23,20 @@ import subprocess
 import threading
 import time
 
+import torch
+
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+ARCH = "sm_90a"
+NVCC_FLAGS = ("-gencode", f"arch=compute_90a,code={ARCH}", "-std=c++17",
               "-O3", "-fmad=false", "-Xptxas", "-v", "-shared",
               "-Xcompiler", "-fPIC")
+
+# nvcc processes started in this process.
+NVCC_RUNS = 0
 
 _LOCK = threading.Lock()
 
@@ -42,11 +53,43 @@ def find_nvcc() -> str:
     return found
 
 
-def _library_path(source: str) -> str:
+def _digest(source: str) -> str:
     with open(os.path.join(CSRC_DIR, source), "rb") as f:
-        digest = hashlib.sha256(f.read() + repr(NVCC_FLAGS).encode())
+        return hashlib.sha256(f.read() + repr(NVCC_FLAGS).encode()).hexdigest()
+
+
+def _library_path(source: str) -> str:
     stem = os.path.splitext(source)[0]
-    return os.path.join(BUILD_DIR, f"lib{stem}_{digest.hexdigest()[:16]}.so")
+    return os.path.join(BUILD_DIR, f"lib{stem}_{_digest(source)[:16]}.so")
+
+
+def library_identity(source: str) -> dict:
+    """What a library built from csrc/<source> by this package is: the
+    hash of the source and the flags (its file name carries the first 16
+    hex digits), the target arch and the CUDA version torch was built
+    against."""
+    return {"file": os.path.basename(_library_path(source)),
+            "sha256": _digest(source), "arch": ARCH,
+            "cuda": torch.version.cuda}
+
+
+def install(source: str, data: bytes, identity: dict) -> str:
+    """Put a prebuilt library for csrc/<source> in place, under the name a
+    build would give it, atomically (written beside it, then os.replace).
+    An existing file is left as it is. Raises ValueError when `identity`
+    is not this package's library_identity(source). Returns the path."""
+    if identity != library_identity(source):
+        raise ValueError(f"library for {source} built as {identity}, this "
+                         f"package builds {library_identity(source)}")
+    out = _library_path(source)
+    with _LOCK:
+        if not os.path.exists(out):
+            os.makedirs(BUILD_DIR, exist_ok=True)
+            tmp = f"{out}.{os.getpid()}.tmp"
+            with open(tmp, "wb") as f:
+                f.write(data)
+            os.replace(tmp, out)
+    return out
 
 
 def build_all(sources):
@@ -54,6 +97,7 @@ def build_all(sources):
     started together. Returns [(path, seconds, compiler report)] in the
     order given; seconds is 0 and the report empty for a library that was
     already built."""
+    global NVCC_RUNS
     with _LOCK:
         results, procs = {}, []
         for source in sources:
@@ -65,6 +109,7 @@ def build_all(sources):
             tmp = f"{out}.{os.getpid()}.tmp"
             cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp,
                    os.path.join(CSRC_DIR, source)]
+            NVCC_RUNS += 1
             procs.append((source, out, tmp, time.perf_counter(),
                           subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                            stderr=subprocess.STDOUT,

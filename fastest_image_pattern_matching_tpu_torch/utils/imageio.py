@@ -8,8 +8,9 @@ when it can be built, and through the numpy twin here when g++ is missing
 (each such fallback is counted in native/bmp.py::FALLBACKS); both read and
 write the same bytes. Other formats go through PIL, with the grey levels
 of OpenCV's IMREAD_GRAYSCALE, which the JAX package calls: libjpeg's own Y
-channel for JPEG, libpng's rgb-to-gray for PNG, cvtColor's weights for
-other colour sources. The port takes no cv2 (a rule of its tests), and
+channel for JPEG, libpng's rgb-to-gray for PNG, libtiff's RGBA image and
+OpenCV's 14-bit luma for colour TIFF, cvtColor's weights for other colour
+sources. The port takes no cv2 (a rule of its tests), and
 the card's machine has none.
 """
 
@@ -106,6 +107,25 @@ def _png_rgb_to_gray(rgb: np.ndarray) -> np.ndarray:
     return ((9797 * r + 19234 * g + 3737 * b) >> 15).astype(np.uint8)
 
 
+def _tiff_rgba_gray(im) -> np.ndarray:
+    """Colour TIFF as OpenCV reads it: libtiff's TIFFReadRGBAImage
+    premultiplies unassociated alpha (ExtraSamples 2) as
+    (v * a + 127) // 255 and leaves associated alpha ("RGBa") as stored;
+    OpenCV then greys the RGBA with its 14-bit weights (4899, 9617, 1868)
+    and a rounding shift (icvCvt_BGRA2Gray_8u_C4C1R)."""
+    if im.mode == "RGBa":
+        rgb = np.asarray(im)[..., :3].astype(np.int64)
+    elif im.mode == "RGBA":
+        rgba = np.asarray(im).astype(np.int64)
+        rgb = rgba[..., :3]
+        if 2 in tuple(im.tag_v2.get(338, ())):
+            rgb = (rgb * rgba[..., 3:] + 127) // 255
+    else:
+        rgb = np.asarray(im.convert("RGB")).astype(np.int64)
+    r, g, b = rgb[..., 0], rgb[..., 1], rgb[..., 2]
+    return ((4899 * r + 9617 * g + 1868 * b + 8192) >> 14).astype(np.uint8)
+
+
 def _pil_gray(path: str) -> np.ndarray:
     try:
         from PIL import Image
@@ -118,14 +138,16 @@ def _pil_gray(path: str) -> np.ndarray:
             # libjpeg hands out its own Y channel, as it does for cv2.
             im.draft("L", im.size)
             return np.asarray(im.convert("L"))
+        if im.format == "TIFF" and im.mode in ("RGB", "RGBA", "RGBa",
+                                               "RGBX", "P"):
+            return _tiff_rgba_gray(im)
         if im.mode not in ("RGB", "RGBA", "P", "PA"):
             return np.asarray(im.convert("L"))
         rgb = np.asarray(im.convert("RGB"))  # alpha dropped, as cv2 does
         if im.format == "PNG":
             return _png_rgb_to_gray(rgb)
         # Other decoders hand OpenCV BGR, which it turns grey with
-        # cvtColor (WebP measured equal; not TIFF, which OpenCV reads
-        # through libtiff's RGBA path).
+        # cvtColor (WebP measured equal).
         return ensure_gray(rgb[..., ::-1])
 
 

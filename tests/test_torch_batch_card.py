@@ -12,6 +12,11 @@ import torch
 from fastest_image_pattern_matching_tpu_torch.ops import warp as twarp
 from fastest_image_pattern_matching_tpu_torch.ops.cuda import warp_kernel
 
+# One intra-op thread: the tier-1 run keeps every core busy (six xdist
+# workers), and there torch's spinning OpenMP pool made port calls
+# about 50x slower (one overflow case: 466 s, 10 s on one thread).
+torch.set_num_threads(1)
+
 
 @pytest.fixture
 def cuda_device():

@@ -18,6 +18,7 @@ import sys
 import cv2
 import numpy as np
 import pytest
+import torch
 
 from fastest_image_pattern_matching_tpu import cli as jcli
 from fastest_image_pattern_matching_tpu import types as jtypes
@@ -39,6 +40,11 @@ from fastest_image_pattern_matching_tpu_torch.utils.imageio import (
     load_gray, save_gray)
 from chip_smoke import glyph, ocr_plate
 from tests.test_torch_orb import _dryrun_pair
+
+# One intra-op thread: the tier-1 run keeps every core busy (six xdist
+# workers), and there torch's spinning OpenMP pool made port calls
+# about 50x slower (one overflow case: 466 s, 10 s on one thread).
+torch.set_num_threads(1)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MATCH_FLAGS = ["--max-pos", "2", "--tolerance-angle", "30"]

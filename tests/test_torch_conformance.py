@@ -8,11 +8,17 @@ directory is absent."""
 import os
 
 import pytest
+import torch
 
 import fastest_image_pattern_matching_tpu_torch as tfipm
 from fastest_image_pattern_matching_tpu_torch.utils.imageio import load_gray
 
 from test_conformance import TI, _G
+
+# One intra-op thread: the tier-1 run keeps every core busy (six xdist
+# workers), and there torch's spinning OpenMP pool made port calls
+# about 50x slower (one overflow case: 466 s, 10 s on one thread).
+torch.set_num_threads(1)
 
 
 @pytest.mark.parametrize("name", sorted(_G))

@@ -32,6 +32,11 @@ from fastest_image_pattern_matching_tpu_torch.ops import peaks as tpeaks
 from fastest_image_pattern_matching_tpu_torch.ops.cuda import corr_kernel
 from tests.test_torch_match import _assert_same_result
 
+# One intra-op thread: the tier-1 run keeps every core busy (six xdist
+# workers), and there torch's spinning OpenMP pool made port calls
+# about 50x slower (one overflow case: 466 s, 10 s on one thread).
+torch.set_num_threads(1)
+
 
 def _t(a):
     return torch.tensor(np.asarray(a))

@@ -26,6 +26,11 @@ from fastest_image_pattern_matching_tpu.ops.pallas.corr_kernel import (
 
 from fastest_image_pattern_matching_tpu_torch.ops import ncc as tncc
 
+# One intra-op thread: the tier-1 run keeps every core busy (six xdist
+# workers), and there torch's spinning OpenMP pool made port calls
+# about 50x slower (one overflow case: 466 s, 10 s on one thread).
+torch.set_num_threads(1)
+
 
 def chunks_per_tile(w: int) -> int:
     """NC of csrc/ccorr_valid.cu: the 32-column chunks of the window that an

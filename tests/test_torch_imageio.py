@@ -4,13 +4,15 @@ against the JAX package's bytes.
 
 The port takes no cv2: JPEG grey comes from libjpeg's Y channel (PIL's
 draft mode), PNG and other colour sources from libpng's rgb-to-gray
-weights, as OpenCV's decoders give them. The JAX package falls back to
+weights, colour TIFF from libtiff's RGBA image (unassociated alpha
+premultiplied) and OpenCV's 14-bit luma, as OpenCV's decoders give them. The JAX package falls back to
 PIL's convert("L") when cv2 does not import, so the comparison needs cv2
 and skips without it.
 """
 
 import numpy as np
 import pytest
+import torch
 
 from fastest_image_pattern_matching_tpu.utils import imageio as jio
 
@@ -18,8 +20,14 @@ from fastest_image_pattern_matching_tpu_torch.utils import imageio as tio
 
 from test_torch_multi_template import _write_bmp
 
+# One intra-op thread: the tier-1 run keeps every core busy (six xdist
+# workers), and there torch's spinning OpenMP pool made port calls
+# about 50x slower (one overflow case: 466 s, 10 s on one thread).
+torch.set_num_threads(1)
+
 KINDS = ["colour_png", "rgba_png", "palette_png", "jpeg_q95", "bgr24_bmp",
-         "grey_png", "grey_alpha_png", "webp"]
+         "grey_png", "grey_alpha_png", "webp", "rgb_tiff", "rgba_tiff",
+         "grey_tiff", "grey_alpha_tiff", "palette_tiff", "rgba_lzw_tiff"]
 
 
 def _write(path_stem, kind, seed):
@@ -48,17 +56,33 @@ def _write(path_stem, kind, seed):
     elif kind == "grey_alpha_png":
         path = path_stem + ".png"
         Image.fromarray(rgb[..., 0]).convert("LA").save(path)
-    else:
+    elif kind == "webp":
         path = path_stem + ".webp"
         Image.fromarray(rgb).save(path, lossless=True)
+    else:
+        path = path_stem + ".tif"
+        alpha = rng.integers(0, 256, (96, 128), np.uint8)
+        img = {"rgb_tiff": lambda: Image.fromarray(rgb),
+               "rgba_tiff": lambda: Image.fromarray(
+                   np.concatenate([rgb, alpha[..., None]], 2)),
+               "rgba_lzw_tiff": lambda: Image.fromarray(
+                   np.concatenate([rgb, alpha[..., None]], 2)),
+               "grey_tiff": lambda: Image.fromarray(rgb[..., 0]),
+               "grey_alpha_tiff": lambda: Image.fromarray(
+                   np.stack([rgb[..., 0], alpha], -1), "LA"),
+               "palette_tiff": lambda: Image.fromarray(rgb).quantize(200),
+               }[kind]()
+        img.save(path, **({"compression": "tiff_lzw"}
+                          if kind == "rgba_lzw_tiff" else {}))
     return path
 
 
 @pytest.mark.parametrize("kind", KINDS)
 def test_load_gray_colour_vs_jax(tmp_path, kind):
     """0 differing pixels on every kind of file (the PIL defaults missed
-    by 1 grey level on ~50% of colour-PNG pixels and by up to 17 on ~1% of
-    JPEG pixels)."""
+    by 1 grey level on ~50% of colour-PNG pixels, by up to 17 on ~1% of
+    JPEG pixels, by 1 on ~0.3% of RGB TIFF pixels and by up to 242 on
+    ~99% of RGBA TIFF pixels)."""
     pytest.importorskip("cv2", reason="the JAX package decodes with cv2 "
                         "only where cv2 imports; without it there is no "
                         "cv2 result to hold the port against")

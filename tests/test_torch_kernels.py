@@ -26,6 +26,11 @@ from fastest_image_pattern_matching_tpu_torch.ops.cuda import (corr_kernel,
 from fastest_image_pattern_matching_tpu_torch.utils import device as tdevice
 from fastest_image_pattern_matching_tpu_torch.utils import geometry
 
+# One intra-op thread: the tier-1 run keeps every core busy (six xdist
+# workers), and there torch's spinning OpenMP pool made port calls
+# about 50x slower (one overflow case: 466 s, 10 s on one thread).
+torch.set_num_threads(1)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "fastest_image_pattern_matching_tpu_torch")
 FORBIDDEN = ("jax", "jaxlib", "cv2", "fastest_image_pattern_matching_tpu")

@@ -11,6 +11,7 @@ import dataclasses
 import cv2
 import numpy as np
 import pytest
+import torch
 
 import fastest_image_pattern_matching_tpu as jfipm
 from fastest_image_pattern_matching_tpu.models import template_matcher as jtm
@@ -18,6 +19,11 @@ from fastest_image_pattern_matching_tpu.models import template_matcher as jtm
 import fastest_image_pattern_matching_tpu_torch as tfipm
 from fastest_image_pattern_matching_tpu_torch.models import (
     template_matcher as ttm)
+
+# One intra-op thread: the tier-1 run keeps every core busy (six xdist
+# workers), and there torch's spinning OpenMP pool made port calls
+# about 50x slower (one overflow case: 466 s, 10 s on one thread).
+torch.set_num_threads(1)
 
 
 def _make_template(rng, h=48, w=64):

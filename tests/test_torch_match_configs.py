@@ -11,6 +11,7 @@ import dataclasses
 import cv2
 import numpy as np
 import pytest
+import torch
 
 import fastest_image_pattern_matching_tpu as jfipm
 from fastest_image_pattern_matching_tpu.models import template_matcher as jtm
@@ -19,6 +20,11 @@ import fastest_image_pattern_matching_tpu_torch as tfipm
 from fastest_image_pattern_matching_tpu_torch.models import (
     template_matcher as ttm)
 from tests.test_torch_match import _assert_same_result
+
+# One intra-op thread: the tier-1 run keeps every core busy (six xdist
+# workers), and there torch's spinning OpenMP pool made port calls
+# about 50x slower (one overflow case: 466 s, 10 s on one thread).
+torch.set_num_threads(1)
 
 
 def _example_problem(src_hw=(192, 224), templ_hw=(40, 56)):

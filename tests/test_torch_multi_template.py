@@ -14,6 +14,7 @@ import struct
 
 import numpy as np
 import pytest
+import torch
 
 import fastest_image_pattern_matching_tpu as jfipm
 from fastest_image_pattern_matching_tpu.models import corpus as jcorpus
@@ -30,6 +31,11 @@ from fastest_image_pattern_matching_tpu_torch.models import (
     multi_template as tmt)
 from fastest_image_pattern_matching_tpu_torch.types import MatchResult
 from fastest_image_pattern_matching_tpu_torch.utils import imageio as tio
+
+# One intra-op thread: the tier-1 run keeps every core busy (six xdist
+# workers), and there torch's spinning OpenMP pool made port calls
+# about 50x slower (one overflow case: 466 s, 10 s on one thread).
+torch.set_num_threads(1)
 
 GLYPHS = "0123456789AB"
 TEXT = "B1A07"

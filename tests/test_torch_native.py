@@ -33,6 +33,11 @@ from fastest_image_pattern_matching_tpu_torch.utils import sources as tsrc
 
 from test_torch_multi_template import _write_bmp
 
+# One intra-op thread: the tier-1 run keeps every core busy (six xdist
+# workers), and there torch's spinning OpenMP pool made port calls
+# about 50x slower (one overflow case: 466 s, 10 s on one thread).
+torch.set_num_threads(1)
+
 
 def test_library_builds_into_build_dir():
     lib = get_lib()

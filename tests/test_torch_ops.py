@@ -34,6 +34,11 @@ from fastest_image_pattern_matching_tpu_torch.ops import warp as twarp
 from fastest_image_pattern_matching_tpu_torch.utils import chunking as tchunk
 from fastest_image_pattern_matching_tpu_torch.utils import imageio as tio
 
+# One intra-op thread: the tier-1 run keeps every core busy (six xdist
+# workers), and there torch's spinning OpenMP pool made port calls
+# about 50x slower (one overflow case: 466 s, 10 s on one thread).
+torch.set_num_threads(1)
+
 
 def _t(a):
     return torch.tensor(np.asarray(a))

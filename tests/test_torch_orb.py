@@ -41,6 +41,11 @@ import fastest_image_pattern_matching_tpu_torch as tfipm
 from fastest_image_pattern_matching_tpu_torch.models import orb as T
 from tests.test_orb import _textured
 
+# One intra-op thread: the tier-1 run keeps every core busy (six xdist
+# workers), and there torch's spinning OpenMP pool made port calls
+# about 50x slower (one overflow case: 466 s, 10 s on one thread).
+torch.set_num_threads(1)
+
 CPU = "cpu"
 
 

@@ -30,10 +30,11 @@ name), so JAX is imported only inside the tests and fixtures: the
 workers must not import it. Each worker's init_process_group has a
 timeout, and the spawning fixture kills the workers that outlive its
 deadline. The workers run on one thread each at the lowest CPU priority:
-the test processes that run beside them (pytest-xdist) keep
+the test processes that run beside them (pytest-xdist) keep JAX's
 multi-threaded pools, which stall badly when extra runnable threads take
-their cores, so under a full test run the worlds take up to 25x their
-time alone (about 35 s), and the deadline allows for that.
+their cores (torch's, too, until every test file set it to one thread),
+so under a full test run the worlds took up to 25x their time alone
+(about 35 s), and the deadline allows for that.
 """
 
 import dataclasses
@@ -52,6 +53,11 @@ import torch
 import chip_smoke
 import fastest_image_pattern_matching_tpu_torch as tfipm
 from fastest_image_pattern_matching_tpu_torch.parallel import mesh as tmesh
+
+# One intra-op thread: the tier-1 run keeps every core busy (six xdist
+# workers), and there torch's spinning OpenMP pool made port calls
+# about 50x slower (one overflow case: 466 s, 10 s on one thread).
+torch.set_num_threads(1)
 
 MESHES = {2: [(1, 2), (2, 1)], 4: [(1, 4), (2, 2), (4, 1)]}
 CASES = ["base", "dual-range", "fast-mode", "nms-overflow", "narrow",

@@ -11,6 +11,11 @@ import torch
 from fastest_image_pattern_matching_tpu_torch.utils.profiling import (
     StageTimer, device_trace)
 
+# One intra-op thread: the tier-1 run keeps every core busy (six xdist
+# workers), and there torch's spinning OpenMP pool made port calls
+# about 50x slower (one overflow case: 466 s, 10 s on one thread).
+torch.set_num_threads(1)
+
 
 def test_stage_timer(tmp_path):
     t = StageTimer()
