@@ -103,6 +103,18 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      the package import, AotMatcher.load, first and second match), with 0
      nvcc runs, 0 g++ runs and 0 bundle rejects, and _build/ holding the
      pack's libraries byte for byte.
+ 22. frame decode without PIL or cv2 (whether each imports here is
+     printed): the flagship frame and its batch as 16-bit PNGs ((u8 << 8)
+     | noise) and as an 8-bit palette PNG, Test7's frame as a 16-bit LZW
+     TIFF with predictor 2 and the corpus frames as PGMs, written with the
+     port's writers and the numpy helpers here, decoded through
+     FolderSource (and the CLI's match on a .png): every decoded frame
+     bit-equal to the u8 array it came from, every match list equal to
+     the u8 array's (valid masks; score 1e-6, centre and angle 1e-5),
+     both kernels launched, no decode route giving way (native/bmp.py and
+     native/decode.py FALLBACKS, codecs/tiff.py PIL_ROUTES all 0); decode
+     ms a frame per format and bit depth at 480x640 and 4024x3036, through
+     the native loops and (480x640) through their Python twins.
 The last three lines of output are the kernels' JSON summary, the card's
 name and power limit, and {"ok": true, "device": {...}}. Imports nothing
 of JAX.
@@ -765,6 +777,8 @@ def main() -> int:
         fipm, warp_kernel, corr_kernel, dev, smi)
     warp["aot_launches"], corr["aot_launches"] = aot_phase(
         fipm, warp_kernel, corr_kernel, dev, smi, warp, corr, cli_matches)
+    warp["decode_launches"], corr["decode_launches"] = decode_phase(
+        fipm, warp_kernel, corr_kernel, dev, smi)
     print(json.dumps({"kernels": [warp, corr]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
@@ -2559,6 +2573,305 @@ def aot_phase(fipm, warp_kernel, corr_kernel, dev, smi, warp, corr,
             raise AssertionError("[21 aot] the fresh process without the "
                                  "pack did not build from source")
     return w_launches, t7_c
+
+
+def png_file(samples, depth=8, palette=None):
+    """A PNG of 2-D grey samples (8 or 16 bits), or of 8-bit palette
+    indices with `palette` (n x 3 u8), every row Paeth-filtered as
+    libpng's encoders mostly filter photographs, deflated at level 1."""
+    import struct
+    import zlib
+    h, w = samples.shape
+    raw = (samples.astype(">u2").view(np.uint8).reshape(h, -1)
+           if depth == 16 else samples.astype(np.uint8))
+    bpp = depth // 8
+    x = raw.astype(np.int16)
+    a = np.zeros_like(x)
+    a[:, bpp:] = x[:, :-bpp]
+    b = np.zeros_like(x)
+    b[1:] = x[:-1]
+    c = np.zeros_like(x)
+    c[1:, bpp:] = x[:-1, :-bpp]
+    p = a + b - c
+    pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
+    pred = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+    rows = np.empty((h, raw.shape[1] + 1), np.uint8)
+    rows[:, 0] = 4
+    rows[:, 1:] = (x - pred) & 0xFF
+
+    def chunk(kind, body):
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body)))
+    ctype = 0 if palette is None else 3
+    out = b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(
+        ">IIBBBBB", w, h, depth, ctype, 0, 0, 0))
+    if palette is not None:
+        out += chunk(b"PLTE", np.asarray(palette, np.uint8).tobytes())
+    return (out + chunk(b"IDAT", zlib.compress(rows.tobytes(), 1))
+            + chunk(b"IEND", b""))
+
+
+def lzw_literal(data: bytes) -> bytes:
+    """A TIFF LZW stream of `data` in literal codes only: Clear, at most
+    250 9-bit literals, Clear, ..., EOI. Valid LZW (a Clear may come at
+    any point), and the decoder's worst case in codes a byte."""
+    v = np.frombuffer(data, np.uint8).astype(np.uint16)
+    k = 250
+    pad = (-v.size) % k
+    blocks = np.concatenate([v, np.full(pad, 0xFFFF, np.uint16)]).reshape(
+        -1, k)
+    codes = np.concatenate([np.full((blocks.shape[0], 1), 256, np.uint16),
+                            blocks], 1).reshape(-1)
+    codes = np.append(codes[codes != 0xFFFF], np.uint16(257))
+    bits = np.unpackbits(codes.astype(">u2").view(np.uint8).reshape(-1, 2),
+                         axis=1)[:, 7:]
+    return np.packbits(bits.reshape(-1)).tobytes()
+
+
+def tiff16_lzw_file(samples, rows_per_strip=64):
+    """A little-endian grey TIFF of 2-D 16-bit samples: LZW
+    (lzw_literal), Predictor 2, one strip per `rows_per_strip` rows."""
+    import struct
+    h, w = samples.shape
+    d = samples.astype(np.int64)
+    d[:, 1:] -= d[:, :-1].copy()
+    d &= 0xFFFF
+    strips = [lzw_literal(d[y:y + rows_per_strip].astype("<u2").tobytes())
+              for y in range(0, h, rows_per_strip)]
+    body = b"".join(strips)
+    offsets = 8 + np.cumsum([0] + [len(x) for x in strips[:-1]])
+    ifd_at = 8 + len(body) + (len(body) & 1)
+    entries = [(256, 4, [w]), (257, 4, [h]), (258, 3, [16]), (259, 3, [5]),
+               (262, 3, [1]), (273, 4, list(offsets)), (277, 3, [1]),
+               (278, 4, [rows_per_strip]),
+               (279, 4, [len(x) for x in strips]), (284, 3, [1]),
+               (317, 3, [2])]
+    tail_at = ifd_at + 2 + 12 * len(entries) + 4
+    ifd, tail = b"", b""
+    for tag, typ, vals in entries:
+        raw = struct.pack(f"<{len(vals)}{'H' if typ == 3 else 'I'}",
+                          *map(int, vals))
+        field = raw.ljust(4, b"\0") if len(raw) <= 4 else struct.pack(
+            "<I", tail_at + len(tail))
+        if len(raw) > 4:
+            tail += raw
+        ifd += struct.pack("<HHI", tag, typ, len(vals)) + field
+    return (b"II*\x00" + struct.pack("<I", ifd_at) + body
+            + b"\0" * (len(body) & 1) + struct.pack("<H", len(entries))
+            + ifd + b"\0\0\0\0" + tail)
+
+
+def decode_phase(fipm, warp_kernel, corr_kernel, dev, smi):
+    """Phase 22: frames decoded by the port's own readers on this
+    machine, which has neither PIL nor cv2 (each import is tried and
+    printed). Returns the warp and correlation kernel launches of the
+    matches on the decoded frames."""
+    import contextlib
+    import importlib
+    import io
+    import torch
+    from fastest_image_pattern_matching_tpu_torch import cli
+    from fastest_image_pattern_matching_tpu_torch.models import (
+        template_matcher as tm)
+    from fastest_image_pattern_matching_tpu_torch.native import bmp
+    from fastest_image_pattern_matching_tpu_torch.native import (
+        decode as ndec)
+    from fastest_image_pattern_matching_tpu_torch.utils import imageio
+    from fastest_image_pattern_matching_tpu_torch.utils.codecs import (
+        pnm, tiff)
+    from fastest_image_pattern_matching_tpu_torch.utils.sources import (
+        FolderSource)
+
+    found = {}
+    for name in ("PIL", "cv2"):
+        try:
+            importlib.import_module(name)
+            found[name] = True
+        except ImportError:
+            found[name] = False
+    log(f"[22 decode] PIL imports here: {found['PIL']}; cv2 imports here: "
+        f"{found['cv2']}")
+
+    def counters():
+        return {"native/bmp.py FALLBACKS": bmp.FALLBACKS,
+                "native/decode.py FALLBACKS": ndec.FALLBACKS,
+                "codecs/tiff.py PIL_ROUTES": tiff.PIL_ROUTES}
+
+    def write(path, data):
+        with open(path, "wb") as f:
+            f.write(data)
+        return path
+
+    def decoded(tag, got, want):
+        if len(got) != len(want) or not all(
+                a.dtype == np.uint8 and np.array_equal(a, b)
+                for a, b in zip(got, want)):
+            raise AssertionError(f"[22 decode] {tag}: a decoded frame "
+                                 "differs from its u8 array")
+
+    rng = np.random.default_rng(22)
+
+    def wide(u8):  # 16-bit samples whose high byte is the u8 frame
+        return (u8.astype(np.uint16) << 8) | rng.integers(
+            0, 256, u8.shape, dtype=np.uint16)
+
+    grey_ramp = np.repeat(np.arange(256, dtype=np.uint8), 3).reshape(256, 3)
+    phase_t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        frames, templ, _ = flagship_batch()
+        t7, t7_templ, _ = many_target_scene(3648, 100)
+        stpl = stream_template()
+        sframes, _ = stream_frames(stpl, 24)
+        dirs = {k: os.path.join(tmp, k) for k in ("png16", "tif16", "pgm")}
+        for d in dirs.values():
+            os.makedirs(d)
+        t0 = time.perf_counter()
+        for i, f in enumerate(frames):
+            write(os.path.join(dirs["png16"], f"{i:03d}.png"),
+                  png_file(wide(f), 16))
+        pal_p = write(os.path.join(tmp, "palette.png"),
+                      png_file(frames[0], 8, grey_ramp))
+        write(os.path.join(dirs["tif16"], "test7.tif"),
+              tiff16_lzw_file(wide(t7)))
+        for i, f in enumerate(sframes):
+            imageio.save_gray(os.path.join(dirs["pgm"], f"{i:03d}.pgm"), f)
+        tpl_p = os.path.join(tmp, "template.png")
+        imageio.save_gray(tpl_p, templ)
+        log(f"[22 decode] wrote 4 flagship frames as 16-bit PNGs, frame 0 "
+            f"as an 8-bit palette PNG, Test7 as a 16-bit LZW TIFF with "
+            f"predictor 2, 24 corpus frames as PGMs, the template as a PNG "
+            f"in {time.perf_counter() - t0:.2f} s")
+
+        walls = {}
+
+        def through(tag, src, n):
+            t0 = time.perf_counter()
+            got = list(src)
+            walls[tag] = (time.perf_counter() - t0) * 1e3 / n
+            return got
+
+        d_flag = through("flagship 16-bit PNG", FolderSource(
+            dirs["png16"], patterns=("*.png",)), len(frames))
+        decoded("flagship 16-bit PNGs", d_flag, frames)
+        t0 = time.perf_counter()
+        d_pal = imageio.load_gray(pal_p)
+        walls["flagship palette PNG"] = (time.perf_counter() - t0) * 1e3
+        decoded("flagship palette PNG", [d_pal], frames[:1])
+        d_t7 = through("Test7 16-bit LZW TIFF", FolderSource(
+            dirs["tif16"], patterns=("*.tif",)), 1)
+        decoded("Test7 16-bit LZW TIFF", d_t7, [t7])
+        d_pgm = through("corpus PGM", FolderSource(
+            dirs["pgm"], patterns=("*.pgm",)), len(sframes))
+        decoded("corpus PGMs", d_pgm, list(sframes))
+        log("[22 decode] every decoded frame bit-equal to its u8 array; "
+            "decode ms a frame through FolderSource / load_gray: " + ", ".join(
+                f"{k} {v:.2f}" for k, v in walls.items()) + f" ({smi})")
+
+        cfg = flagship_config(fipm)
+        pattern = fipm.learn_pattern(templ, cfg.min_reduce_area, device=dev)
+        t7_cfg = many_target_config(fipm, 100)
+        t7_pat = fipm.learn_pattern(t7_templ, t7_cfg.min_reduce_area,
+                                    device=dev)
+        scfg = fipm.MatchConfig(max_pos=1, score=0.6, tolerance_angle=15.0)
+        spat = fipm.learn_pattern(stpl, 256, device=dev)
+        wants = [tm.match_arrays(f, pattern, cfg, device=dev)
+                 for f in frames]
+        want_t7 = tm.match_arrays(t7, t7_pat, t7_cfg, device=dev)
+        want_corpus = list(fipm.inspect_corpus(list(sframes), spat, scfg,
+                                               batch_size=8, device=dev))
+        torch.cuda.synchronize()
+        warp_kernel.LAUNCHES = corr_kernel.LAUNCHES = 0
+        worst = {}
+        pairs = list(zip(d_flag, wants)) + [(d_pal, wants[0])]
+        for i, (f, want) in enumerate(pairs):
+            d = same_results(f"[22 decode] flagship frame {i}",
+                             tm.match_arrays(f, pattern, cfg, device=dev),
+                             want, 1e-6, 1e-5)
+            worst = {k: max(worst.get(k, 0.0), v) for k, v in d.items()}
+        d = same_results("[22 decode] Test7", tm.match_arrays(
+            d_t7[0], t7_pat, t7_cfg, device=dev), want_t7, 1e-6, 1e-5)
+        worst = {k: max(worst.get(k, 0.0), v) for k, v in d.items()}
+        got_corpus = list(fipm.inspect_corpus(FolderSource(
+            dirs["pgm"], patterns=("*.pgm",)), spat, scfg, batch_size=8,
+            device=dev))
+        fields = [[(m.score, m.pos_x, m.pos_y, m.angle) for m in r.results]
+                  for r in got_corpus]
+        if fields != [[(m.score, m.pos_x, m.pos_y, m.angle)
+                       for m in r.results] for r in want_corpus]:
+            raise AssertionError("[22 decode] inspect_corpus over the PGMs "
+                                 "differs from the u8 frames'")
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(["match", "-s", os.path.join(dirs["png16"],
+                                                      "000.png"),
+                           "-t", tpl_p, "--json", "--max-pos", "3",
+                           "--score", "0.7", "--tolerance-angle", "180",
+                           "--max-overlap", "0.1"])
+        torch.cuda.synchronize()
+        launches = (warp_kernel.LAUNCHES, corr_kernel.LAUNCHES)
+        got = json.loads(out.getvalue()) if rc == 0 else {"count": -1}
+        want = fipm.match(frames[0], pattern, cfg, device=dev)
+        same = got["count"] == len(want) == 3 and all(
+            m["score"] == r.score and m["angle"] == r.angle
+            and m["pos_x"] == r.pos_x and m["pos_y"] == r.pos_y
+            for m, r in zip(got["matches"], want))
+        log(f"[22 decode] match lists on the decoded frames equal to the u8 "
+            f"arrays' (5 flagship, Test7; valid masks, score 1e-6, centre "
+            f"and angle 1e-5): max |d| {worst}; inspect_corpus over the "
+            f"PGMs equal; cli match --json on the 16-bit PNG: "
+            f"{got['count']} targets, equal to match(): {same}; warp "
+            f"kernel launches {launches[0]}, correlation {launches[1]}")
+        if not same or min(launches) <= 0:
+            raise AssertionError("[22 decode] the CLI's match on the PNG "
+                                 "differs, or a kernel was not launched")
+        bad = {k: v for k, v in counters().items() if v}
+        if bad:
+            raise AssertionError(f"[22 decode] decode routes gave way: {bad}")
+        log(f"[22 decode] no decode route gave way: {counters()}")
+
+        # Decode ms a frame per format and bit depth, native loops and
+        # (480x640) their Python twins, the twins reached by stubbing
+        # native/decode.py::available to False (no fallback is counted).
+        sizes = {"480x640": sframes[0], "4024x3036": frames[0]}
+        writers = {
+            "PNG 8-bit": (".png", lambda u8: png_file(u8, 8)),
+            "PNG 16-bit": (".png", lambda u8: png_file(wide(u8), 16)),
+            "PNG 8-bit palette": (".png",
+                                  lambda u8: png_file(u8, 8, grey_ramp)),
+            "TIFF 16-bit LZW pred2": (".tif",
+                                      lambda u8: tiff16_lzw_file(wide(u8))),
+            "PGM 8-bit": (".pgm", pnm.encode_pgm),
+        }
+        for size, u8 in sizes.items():
+            for k, (fmt, (suffix, make)) in enumerate(writers.items()):
+                path = write(os.path.join(tmp, f"{size}_{k}{suffix}"),
+                             make(u8))
+                times = {}
+                for route in ("native", "twin") if size == "480x640" else (
+                        "native",):
+                    real = ndec.available
+                    if route == "twin":
+                        ndec.available = lambda: False
+                    try:
+                        ms = []
+                        for _ in range(3):
+                            t0 = time.perf_counter()
+                            img = imageio.load_gray(path)
+                            ms.append((time.perf_counter() - t0) * 1e3)
+                    finally:
+                        ndec.available = real
+                    if not np.array_equal(img, u8):
+                        raise AssertionError(f"[22 decode] {size} {fmt} "
+                                             f"({route}) differs")
+                    times[route] = statistics.median(ms)
+                log(f"[22 decode] {size} {fmt}: " + ", ".join(
+                    f"{r} {v:.3f} ms" for r, v in times.items())
+                    + f" a frame (median of 3, host; {smi})")
+        bad = {k: v for k, v in counters().items() if v}
+        if bad:
+            raise AssertionError(f"[22 decode] decode routes gave way: {bad}")
+    log(f"[22 decode] phase wall {time.perf_counter() - phase_t0:.1f} s")
+    return launches
 
 
 def profile_match(tag, run, smi, runs=3, frames=1):

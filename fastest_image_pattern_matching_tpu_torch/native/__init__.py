@@ -1,5 +1,6 @@
 """The port's native host library (ctypes bindings to src/fipm_native.cc):
-the BMP codec, the threaded BatchLoader and the host peak / NMS oracles.
+the BMP codec, the threaded BatchLoader, the host peak / NMS oracles and
+the byte-serial loops of PNG and TIFF decode (decode.py).
 
 g++ builds the library at first use, never on import, into `_build/`
 beside the package (listed in .gitignore). The file name carries a hash of
@@ -140,5 +141,17 @@ def get_lib() -> ctypes.CDLL:
             ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_uint8)]
         lib.fipm_loader_destroy.restype = None
         lib.fipm_loader_destroy.argtypes = [ctypes.c_void_p]
+        u8p = ctypes.POINTER(ctypes.c_uint8)
+        i64 = ctypes.c_int64
+        lib.fipm_png_unfilter.restype = i64
+        lib.fipm_png_unfilter.argtypes = [u8p, i64, i64, ctypes.c_int, u8p]
+        for name in ("fipm_tiff_lzw_decode", "fipm_tiff_packbits_decode"):
+            getattr(lib, name).restype = i64
+            getattr(lib, name).argtypes = [u8p, i64, u8p, i64]
+        lib.fipm_tiff_unpredict_u8.restype = None
+        lib.fipm_tiff_unpredict_u8.argtypes = [u8p, i64, i64, ctypes.c_int]
+        lib.fipm_tiff_unpredict_u16.restype = None
+        lib.fipm_tiff_unpredict_u16.argtypes = [
+            ctypes.POINTER(ctypes.c_uint16), i64, i64, ctypes.c_int]
         _LIB = lib
         return _LIB

@@ -347,4 +347,177 @@ void fipm_loader_destroy(void* handle) {
   delete L;
 }
 
+// --- decode loops: the port's own, beyond the JAX package's copy ---------
+// The byte-serial inner loops of PNG and TIFF decode
+// (utils/codecs/png.py, tiff.py). Inflate stays in Python's zlib, so this
+// library needs no zlib. Each loop has a numpy / pure-Python twin beside
+// its caller, which the tests hold it bit-equal to.
+
+// PNG unfiltering (None, Sub, Up, Average, Paeth) of `rows` rows, each one
+// filter-type byte and `row_bytes` bytes, `bpp` bytes per complete pixel
+// (1 for sub-byte pixels), into `out` (rows * row_bytes). Returns 0, or
+// the 1-based row of the first unknown filter type.
+int64_t fipm_png_unfilter(const uint8_t* in, int64_t rows, int64_t row_bytes,
+                          int bpp, uint8_t* out) {
+  const int64_t lead = std::min<int64_t>(bpp, row_bytes);
+  for (int64_t y = 0; y < rows; y++) {
+    const uint8_t* src = in + y * (row_bytes + 1) + 1;
+    uint8_t* cur = out + y * row_bytes;
+    const uint8_t* up = y ? cur - row_bytes : nullptr;
+    int ft = src[-1];
+    if (ft > 4) return y + 1;
+    // On the first row Up is None, Average halves the left byte and Paeth
+    // is Sub; the first pixel's bytes have no left neighbour.
+    if (!up && ft == 2) ft = 0;
+    if (!up && ft == 4) ft = 1;
+    if (ft == 0) {
+      memcpy(cur, src, row_bytes);
+      continue;
+    }
+    for (int64_t i = 0; i < lead; i++) {
+      int b = up ? up[i] : 0;
+      cur[i] = (uint8_t)(src[i] + (ft == 1 ? 0 : ft == 3 ? b >> 1 : b));
+    }
+    switch (ft) {
+      case 1:
+        for (int64_t i = bpp; i < row_bytes; i++)
+          cur[i] = (uint8_t)(src[i] + cur[i - bpp]);
+        break;
+      case 2:
+        for (int64_t i = bpp; i < row_bytes; i++)
+          cur[i] = (uint8_t)(src[i] + up[i]);
+        break;
+      case 3:
+        if (!up) {
+          for (int64_t i = bpp; i < row_bytes; i++)
+            cur[i] = (uint8_t)(src[i] + (cur[i - bpp] >> 1));
+          break;
+        }
+        for (int64_t i = bpp; i < row_bytes; i++)
+          cur[i] = (uint8_t)(src[i] + ((cur[i - bpp] + up[i]) >> 1));
+        break;
+      default:  // 4, Paeth: |p - a| = |b - c|, |p - b| = |a - c|, ...
+        for (int64_t i = bpp; i < row_bytes; i++) {
+          int a = cur[i - bpp], b = up[i], c = up[i - bpp];
+          int pa = std::abs(b - c), pb = std::abs(a - c),
+              pc = std::abs(a + b - 2 * c);
+          // Branch-free select: noise defeats the branch predictor.
+          int bc = pb <= pc ? b : c;
+          int pred = ((pa <= pb) & (pa <= pc)) ? a : bc;
+          cur[i] = (uint8_t)(src[i] + pred);
+        }
+    }
+  }
+  return 0;
+}
+
+// TIFF LZW (TIFF 6.0's MSB-first codes of 9 to 12 bits, the width growing
+// one code early, as libtiff decodes) of `n` bytes into at most `cap`
+// bytes of `out`. Stops at EOI, at the end of the input or when `out` is
+// full. Returns the bytes written, or -1 for a code outside the table.
+int64_t fipm_tiff_lzw_decode(const uint8_t* in, int64_t n, uint8_t* out,
+                             int64_t cap) {
+  std::vector<uint16_t> prefix(4096), length(4096);
+  std::vector<uint8_t> suffix(4096), first(4096);
+  for (int i = 0; i < 256; i++) {
+    suffix[i] = first[i] = (uint8_t)i;
+    length[i] = 1;
+  }
+  int nbits = 9, free_ent = 258, old = -1;
+  int64_t bitpos = 0, o = 0;
+  const int64_t total = n * 8;
+  while (o < cap && bitpos + nbits <= total) {
+    // The code's bits lie in the three bytes from bitpos / 8 on.
+    int64_t at = bitpos >> 3;
+    uint32_t window = (uint32_t)in[at] << 16;
+    if (at + 1 < n) window |= (uint32_t)in[at + 1] << 8;
+    if (at + 2 < n) window |= in[at + 2];
+    int code = (int)((window >> (24 - nbits - (bitpos & 7))) &
+                     ((1u << nbits) - 1));
+    bitpos += nbits;
+    if (code == 256) {
+      nbits = 9;
+      free_ent = 258;
+      old = -1;
+      continue;
+    }
+    if (code == 257) break;
+    if (old < 0) {
+      if (code > 255) return -1;
+      out[o++] = (uint8_t)code;
+      old = code;
+      continue;
+    }
+    if (code > free_ent || (code == free_ent && free_ent >= 4096))
+      return -1;
+    // The string of `code` (for code == free_ent: old's and old's first).
+    int str = code < free_ent ? code : old;
+    int64_t len = length[str] + (code == free_ent ? 1 : 0);
+    uint8_t head = first[str];
+    if (code == free_ent && o + len - 1 < cap) out[o + len - 1] = head;
+    int64_t pos = length[str] - 1;
+    for (int c = str; ; c = prefix[c], pos--) {
+      if (o + pos < cap) out[o + pos] = suffix[c];
+      if (pos == 0) break;
+    }
+    o = std::min(o + len, cap);
+    if (free_ent < 4096) {
+      prefix[free_ent] = (uint16_t)old;
+      suffix[free_ent] = head;
+      first[free_ent] = first[old];
+      length[free_ent] = (uint16_t)(length[old] + 1);
+      free_ent++;
+      if (free_ent >= (1 << nbits) - 1 && nbits < 12) nbits++;
+    }
+    old = code;
+  }
+  return o;
+}
+
+// TIFF PackBits of `n` bytes into at most `cap` bytes of `out`. Stops at
+// the end of the input, at a literal run the input cuts short, or when
+// `out` is full. Returns the bytes written.
+int64_t fipm_tiff_packbits_decode(const uint8_t* in, int64_t n, uint8_t* out,
+                                  int64_t cap) {
+  int64_t i = 0, o = 0;
+  while (i < n && o < cap) {
+    int c = (int8_t)in[i++];
+    if (c >= 0) {
+      if (i + c + 1 > n) break;
+      int64_t k = std::min<int64_t>(c + 1, cap - o);
+      memcpy(out + o, in + i, k);
+      i += c + 1;
+      o += k;
+    } else if (c != -128) {
+      if (i >= n) break;
+      int64_t k = std::min<int64_t>(1 - c, cap - o);
+      memset(out + o, in[i++], k);
+      o += k;
+    }
+  }
+  return o;
+}
+
+// Undoes TIFF's horizontal predictor (Predictor 2) in place on `rows` rows
+// of `cols` pixels of `spp` samples, 8-bit (u8) or 16-bit (u16, native
+// byte order) samples, each sample summed along its row modulo 2^bits.
+void fipm_tiff_unpredict_u8(uint8_t* buf, int64_t rows, int64_t cols,
+                            int spp) {
+  for (int64_t y = 0; y < rows; y++) {
+    uint8_t* row = buf + y * cols * spp;
+    for (int64_t i = spp; i < cols * spp; i++)
+      row[i] = (uint8_t)(row[i] + row[i - spp]);
+  }
+}
+
+void fipm_tiff_unpredict_u16(uint16_t* buf, int64_t rows, int64_t cols,
+                             int spp) {
+  for (int64_t y = 0; y < rows; y++) {
+    uint16_t* row = buf + y * cols * spp;
+    for (int64_t i = spp; i < cols * spp; i++)
+      row[i] = (uint16_t)(row[i] + row[i - spp]);
+  }
+}
+// --- end of the decode loops -----------------------------------------------
+
 }  // extern "C"

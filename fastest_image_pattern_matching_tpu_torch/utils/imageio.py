@@ -1,17 +1,21 @@
 """Image input and output: grayscale conversion of in-memory images,
 grayscale file loading and saving (the port of
 `fastest_image_pattern_matching_tpu/utils/imageio.py::ensure_gray`,
-`load_gray` and `save_gray`).
+`load_gray` and `save_gray`), with the grey levels of OpenCV's
+cv2.imread(path, IMREAD_GRAYSCALE), which the JAX package calls.
 
-BMP goes through the C++ codec of the port's native library (native/bmp.py)
-when it can be built, and through the numpy twin here when g++ is missing
-(each such fallback is counted in native/bmp.py::FALLBACKS); both read and
-write the same bytes. Other formats go through PIL, with the grey levels
-of OpenCV's IMREAD_GRAYSCALE, which the JAX package calls: libjpeg's own Y
-channel for JPEG, libpng's rgb-to-gray for PNG, libtiff's RGBA image and
-OpenCV's 14-bit luma for colour TIFF, cvtColor's weights for other colour
-sources. The port takes no cv2 (a rule of its tests), and
-the card's machine has none.
+load_gray routes PNG, PNM (P1-P6) and TIFF by their magic bytes to the
+readers of utils/codecs/, which need numpy and zlib alone and read 1- to
+16-bit samples exactly as OpenCV does; a TIFF feature outside their list
+goes to PIL, counted in codecs/tiff.py::PIL_ROUTES. BMP goes through the
+C++ codec of the port's native library (native/bmp.py) when it can be
+built, and through the numpy twin here when g++ is missing (each such
+fallback is counted in native/bmp.py::FALLBACKS); both read and write the
+same bytes. JPEG (libjpeg's own Y channel), WebP (cvtColor's weights) and
+Sun raster (OpenCV's 14-bit weights) go through PIL, and raise an
+ImportError that names PIL where it is missing. save_gray writes BMP,
+PNG and PGM without PIL, JPEG (quality 95) and WebP (lossless) through
+it, as cv2.imwrite does. The port takes no cv2 (a rule of its tests).
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ import numpy as np
 import torch
 
 from ..native import bmp as native_bmp
+from .codecs import gray14, orient, png, pnm, tiff
 
 
 def ensure_gray(img, channel_axis_only: bool = False):
@@ -99,14 +104,6 @@ def _bmp_gray(path: str) -> np.ndarray:
     return np.ascontiguousarray(img[::-1] if height > 0 else img)
 
 
-def _png_rgb_to_gray(rgb: np.ndarray) -> np.ndarray:
-    """libpng's png_set_rgb_to_gray(.., 0.299, 0.587) on 8-bit RGB, which
-    OpenCV's PNG decoder asks for: 15-bit weights (9797, 19234, 3737; they
-    sum to 32768, so grey pixels pass through) and a truncating shift."""
-    r, g, b = (rgb[..., i].astype(np.int64) for i in range(3))
-    return ((9797 * r + 19234 * g + 3737 * b) >> 15).astype(np.uint8)
-
-
 def _tiff_rgba_gray(im) -> np.ndarray:
     """Colour TIFF as OpenCV reads it: libtiff's TIFFReadRGBAImage
     premultiplies unassociated alpha (ExtraSamples 2) as
@@ -122,41 +119,61 @@ def _tiff_rgba_gray(im) -> np.ndarray:
             rgb = (rgb * rgba[..., 3:] + 127) // 255
     else:
         rgb = np.asarray(im.convert("RGB")).astype(np.int64)
-    r, g, b = rgb[..., 0], rgb[..., 1], rgb[..., 2]
-    return ((4899 * r + 9617 * g + 1868 * b + 8192) >> 14).astype(np.uint8)
+    return gray14(rgb[..., 0], rgb[..., 1], rgb[..., 2])
 
 
-def _pil_gray(path: str) -> np.ndarray:
+def _pil_gray(path: str, why: str = "") -> np.ndarray:
     try:
         from PIL import Image
     except ImportError as e:
         ext = os.path.splitext(path)[1] or "(no extension)"
-        raise ImportError(f"reading {ext} images needs PIL; the port reads "
-                          f"only BMP without it: {path}") from e
+        raise ImportError(f"reading {why or ext + ' images'} needs PIL; "
+                          f"without it the port reads BMP, PNG, PNM and "
+                          f"baseline TIFF: {path}") from e
     with Image.open(path) as im:
         if im.format == "JPEG":
-            # libjpeg hands out its own Y channel, as it does for cv2.
+            # libjpeg hands out its own Y channel, as it does for cv2;
+            # imread turns the image as its EXIF Orientation asks.
             im.draft("L", im.size)
-            return np.asarray(im.convert("L"))
+            return orient(np.asarray(im.convert("L")),
+                          im.getexif().get(274, 1))
+        if im.mode.startswith("I;16"):
+            return (np.asarray(im) >> 8).astype(np.uint8)
         if im.format == "TIFF" and im.mode in ("RGB", "RGBA", "RGBa",
                                                "RGBX", "P"):
             return _tiff_rgba_gray(im)
         if im.mode not in ("RGB", "RGBA", "P", "PA"):
             return np.asarray(im.convert("L"))
         rgb = np.asarray(im.convert("RGB"))  # alpha dropped, as cv2 does
-        if im.format == "PNG":
-            return _png_rgb_to_gray(rgb)
-        # Other decoders hand OpenCV BGR, which it turns grey with
-        # cvtColor (WebP measured equal).
+        if im.format == "SUN":
+            # OpenCV's Sun raster decoder greys with its 14-bit weights.
+            rgb = rgb.astype(np.int64)
+            return gray14(rgb[..., 0], rgb[..., 1], rgb[..., 2])
+        # WebP hands OpenCV BGR, which it turns grey with cvtColor.
         return ensure_gray(rgb[..., ::-1])
 
 
 def load_gray(path: str) -> np.ndarray:
-    """Load an image file as 2-D u8 grayscale: BMP through the native codec
-    (or its numpy twin without g++), other formats through PIL, which
-    raises ImportError when it is missing."""
+    """Load an image file as 2-D u8 grayscale. PNG, PNM and TIFF (by
+    their magic bytes) through utils/codecs/, a TIFF feature outside their
+    list through PIL (counted); BMP through the native codec (or its numpy
+    twin without g++); anything else through PIL, which raises ImportError
+    when it is missing. A malformed, truncated or corrupt file raises
+    ValueError."""
     if not os.path.exists(path):
         raise FileNotFoundError(path)
+    with open(path, "rb") as f:
+        head = f.read(8)
+        codec = next((c for c in (png, pnm, tiff) if c.is_magic(head)), None)
+        data = head + f.read() if codec is not None else None
+    if codec is tiff:
+        try:
+            return tiff.read_gray(data)
+        except tiff.Unsupported as e:
+            tiff.count_pil_route()
+            return _pil_gray(path, f"a TIFF with {e}")
+    if codec is not None:
+        return codec.read_gray(data)
     if path.lower().endswith(".bmp"):
         if native_bmp.available():
             return native_bmp.load_gray(path)
@@ -187,25 +204,32 @@ def _bmp_gray_bytes(img: np.ndarray) -> bytes:
 def save_gray(path: str, img) -> None:
     """Save a 2-D image as u8 grayscale (float input rounded and clipped
     to [0, 255]). BMP through the native codec (or its numpy twin without
-    g++); other formats through PIL, which raises ImportError when it is
-    missing."""
+    g++), 8-bit grey PNG and binary PGM in numpy and zlib; other formats
+    through PIL (JPEG at quality 95, WebP lossless, as cv2.imwrite writes
+    them), which raises ImportError when it is missing."""
     img = np.asarray(img)
     if img.ndim != 2:
         raise ValueError(f"save_gray takes a 2-D image, got shape "
                          f"{img.shape}")
     if img.dtype != np.uint8:
         img = np.clip(np.round(img), 0, 255).astype(np.uint8)
-    if path.lower().endswith(".bmp"):
-        if native_bmp.available():
-            native_bmp.save_gray(path, img)
-        else:
-            with open(path, "wb") as f:
-                f.write(_bmp_gray_bytes(img))
+    ext = os.path.splitext(path)[1].lower()
+    if ext == ".bmp" and native_bmp.available():
+        native_bmp.save_gray(path, img)
+        return
+    encode = {".bmp": _bmp_gray_bytes, ".png": png.encode_gray8,
+              ".pgm": pnm.encode_pgm}.get(ext)
+    if encode is not None:
+        with open(path, "wb") as f:
+            f.write(encode(img))
         return
     try:
         from PIL import Image
     except ImportError as e:
-        ext = os.path.splitext(path)[1] or "(no extension)"
-        raise ImportError(f"writing {ext} images needs PIL; the port writes "
-                          f"only BMP without it: {path}") from e
-    Image.fromarray(img).save(path)
+        raise ImportError(f"writing {ext or '(no extension)'} images needs "
+                          f"PIL; without it the port writes BMP, PNG and "
+                          f"PGM: {path}") from e
+    # cv2.imwrite's defaults: JPEG quality 95, lossless WebP.
+    options = {".jpg": {"quality": 95}, ".jpeg": {"quality": 95},
+               ".webp": {"lossless": True}}.get(ext, {})
+    Image.fromarray(img).save(path, **options)

@@ -17,6 +17,7 @@ import torch
 from fastest_image_pattern_matching_tpu.utils import imageio as jio
 
 from fastest_image_pattern_matching_tpu_torch.utils import imageio as tio
+from fastest_image_pattern_matching_tpu_torch.utils.codecs import png
 
 from test_torch_multi_template import _write_bmp
 
@@ -96,7 +97,7 @@ def test_load_gray_colour_vs_jax(tmp_path, kind):
 def test_png_rgb_to_gray_passes_grey_through():
     v = np.arange(256, dtype=np.uint8)
     rgb = np.stack([v, v, v], -1)
-    np.testing.assert_array_equal(tio._png_rgb_to_gray(rgb), v)
+    np.testing.assert_array_equal(png._png_rgb_to_gray(rgb), v)
 
 
 @pytest.mark.parametrize("dtype", [np.uint8, np.float32])

@@ -230,12 +230,17 @@ def test_load_gray_vs_jax(tmp_path, kind):
 
 
 def test_load_gray_without_pil_names_the_format(tmp_path, monkeypatch):
-    path = str(tmp_path / "img.png")
-    jio.save_gray(path, np.zeros((4, 4), np.uint8))
+    """Without PIL a JPEG raises an ImportError naming its extension and
+    PIL; a PNG, which the port's own reader decodes, loads."""
+    jpg, png = str(tmp_path / "img.jpg"), str(tmp_path / "img.png")
+    jio.save_gray(jpg, np.zeros((4, 4), np.uint8))
+    jio.save_gray(png, np.full((4, 4), 7, np.uint8))
     import sys
     monkeypatch.setitem(sys.modules, "PIL", None)
-    with pytest.raises(ImportError, match=r"\.png"):
-        tio.load_gray(path)
+    with pytest.raises(ImportError, match=r"\.jpg images needs PIL"):
+        tio.load_gray(jpg)
+    np.testing.assert_array_equal(tio.load_gray(png),
+                                  np.full((4, 4), 7, np.uint8))
     with pytest.raises(FileNotFoundError):
         tio.load_gray(str(tmp_path / "missing.bmp"))
 
