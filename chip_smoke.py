@@ -80,10 +80,10 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      BMPs, decoded through FileSource on 1 and 4 threads (ms per frame,
      frames equal); inspect_corpus over FolderSource on 1 and 4 threads
      (ms per frame, reports equal); no fallback to the numpy codec.
- 19. profiling: StageTimer around the flagship's stages against the same
-     stages timed with CUDA events (phase 4's split), within the run's
-     noise; device_trace writes a Chrome trace that parses as JSON and
-     names the warp kernel.
+ 19. profiling: the port's span table over a flagship match (the stages'
+     host ms) against device_trace's Chrome trace of the same call: every
+     stage span in both on one clock, fipm.match's children covering at
+     least 95% of it, the warp kernel named.
  20. torch.distributed with NCCL at world size 1 (127.0.0.1, a free port)
      and make_mesh((1, 1)): match_batch_sharded on phase 10's flagship
      batch equal to match_many_arrays, with warp kernel launches; Test7 as
@@ -138,6 +138,15 @@ FLAGSHIP_POSES = [(1725.9, 1045.4, 0.05), (2662.9, 1537.4, -119.98),
                   (1768.9, 2098.5, 120.15)]
 SMALL_POSES = [(150.0, 130.0, 0.0), (430.0, 160.0, 120.0),
                (280.0, 380.0, -120.0)]
+
+
+def kernel_launches(since=None):
+    """(warp, correlation) kernel launches of this process, from the
+    port's counters; with `since` (an earlier value), those after it."""
+    from fastest_image_pattern_matching_tpu_torch.utils.profiling import (
+        counter)
+    now = (counter("warp.launches"), counter("corr.launches"))
+    return now if since is None else (now[0] - since[0], now[1] - since[1])
 
 
 def log(msg):
@@ -924,11 +933,11 @@ def flagship_phases(fipm, warp_kernel, dev, smi):
     max_err = max(max_err, d)
 
     # Phase 4: the flagship end to end, through the user entry points.
-    warp_kernel.LAUNCHES = 0
+    k0 = kernel_launches()
     warp_kernel.global_tap_blocks(reset=True)
     res = fipm.match(scene, pattern, cfg, device=dev)
     torch.cuda.synchronize()
-    launches = warp_kernel.LAUNCHES
+    launches = kernel_launches(k0)[0]
     n_global = warp_kernel.global_tap_blocks(reset=True)
     log(f"[4 flagship] {len(res)} matches, warp kernel launches {launches} "
         f"(blocks that read taps from global memory: {n_global})")
@@ -953,7 +962,7 @@ def flagship_phases(fipm, warp_kernel, dev, smi):
     run = lambda: fipm.match(scene, pattern, cfg, device=dev)
     wall = log_walls("[4 flagship]", run, smi)
     prof = profile_match("[4 flagship]", run, smi)
-    stage_ms = stage_times(tm, build_pyramid, scene, pattern, cfg, dev)
+    stage_ms = stage_times(fipm, scene, pattern, cfg, dev)
     log("[4 flagship] stages ms: " + ", ".join(
         f"{k} {v:.3f}" for k, v in stage_ms.items()) + f" ({smi})")
 
@@ -1097,16 +1106,15 @@ def many_target_phases(fipm, corr_kernel, warp_kernel, dev, smi):
         f"{bms:.4f} ms by {by} ({smi})")
 
     # Phase 7: Test7's many-target scene end to end on the card.
-    corr_kernel.LAUNCHES = 0
-    warp_kernel.LAUNCHES = 0
+    k0 = kernel_launches()
     corr_kernel.path_blocks(reset=True)
     res = fipm.match(scene, pattern, cfg, device=dev)
     torch.cuda.synchronize()
-    launches = corr_kernel.LAUNCHES
+    launches = kernel_launches(k0)[1]
     n_int8, n_f32 = corr_kernel.path_blocks(reset=True)
     log(f"[7 many-target] {len(res)} matches, correlation kernel launches "
         f"{launches} (blocks on the int8 path {n_int8}, on the f32 path "
-        f"{n_f32}), warp kernel launches {warp_kernel.LAUNCHES}")
+        f"{n_f32}), warp kernel launches {kernel_launches(k0)[0]}")
     if launches != 1 or n_int8 <= 0 or n_f32:
         raise AssertionError("the many-target path did not take the "
                              "correlation kernel's int8 path once")
@@ -1129,7 +1137,7 @@ def many_target_phases(fipm, corr_kernel, warp_kernel, dev, smi):
     run = lambda: fipm.match(scene, pattern, cfg, device=dev)
     wall = log_walls("[7 many-target]", run, smi)
     prof = profile_match("[7 many-target]", run, smi)
-    stage_ms = stage_times(tm, build_pyramid, scene, pattern, cfg, dev)
+    stage_ms = stage_times(fipm, scene, pattern, cfg, dev)
     log("[7 many-target] stages ms: " + ", ".join(
         f"{k} {v:.3f}" for k, v in stage_ms.items()) + f" ({smi})")
     lv = pattern.levels[top]
@@ -1151,9 +1159,9 @@ def many_target_phases(fipm, corr_kernel, warp_kernel, dev, smi):
     src = np.random.default_rng(12).integers(0, 256, (1000, 1100),
                                              dtype=np.uint8)
     mt_templ = src[300:320, 400:424].copy()
-    corr_kernel.LAUNCHES = 0
+    k0 = kernel_launches()
     on_card = fipm.match_template(src, mt_templ, device=dev)
-    mt_launches = corr_kernel.LAUNCHES
+    mt_launches = kernel_launches(k0)[1]
     on_cpu = fipm.match_template(src, mt_templ, device="cpu")
     d = float(np.abs(on_card - on_cpu).max())
     peak = np.unravel_index(np.argmax(on_card), on_card.shape)
@@ -1181,10 +1189,10 @@ def many_target_phases(fipm, corr_kernel, warp_kernel, dev, smi):
     # Phase 9: the small many-target scene, card against CPU.
     for tol in (0.0, 30.0):
         s_cfg = many_target_config(fipm, 20, tol)
-        corr_kernel.LAUNCHES = 0
+        k0 = kernel_launches()
         card_vs_cpu(f"[9 card vs cpu, tol {tol:g}]", tm, s_scene, s_pat,
                     s_cfg, dev, 20, 1e-5)
-        if corr_kernel.LAUNCHES <= 0:
+        if kernel_launches(k0)[1] <= 0:
             raise AssertionError("no correlation kernel launch")
 
     return dict(wall=wall, profile=prof, peaks_ms=peaks_ms,
@@ -1324,10 +1332,10 @@ def batch_phases(fipm, warp_kernel, corr_kernel, dev, smi, single, many):
     pattern = fipm.learn_pattern(templ, 256, device=dev)
     N = frames.shape[0]
     fipm.match_many(frames, pattern, cfg, device=dev)
-    warp_kernel.LAUNCHES = 0
+    k0 = kernel_launches()
     res = fipm.match_many(frames, pattern, cfg, device=dev)
     torch.cuda.synchronize()
-    launches = warp_kernel.LAUNCHES
+    launches = kernel_launches(k0)[0]
     log(f"[10 flagship batch] {N} frames: warp kernel launches {launches} "
         f"per batch, against {single['launches']} per single match "
         f"({N * single['launches']} for {N} matches)")
@@ -1386,7 +1394,7 @@ def batch_phases(fipm, warp_kernel, corr_kernel, dev, smi, single, many):
         f"device events, {syncs:.0f} host copies or syncs; phase 4: busy "
         f"{single['profile'][0]:.1f}%, {single['profile'][1]:.0f} events, "
         f"{single['profile'][2]:.0f} syncs")
-    stage_ms = stage_times(tm, build_pyramid, frames, pattern, cfg, dev)
+    stage_ms = stage_times(fipm, frames, pattern, cfg, dev)
     log("[10 flagship batch] stages ms per batch: " + ", ".join(
         f"{k} {v:.3f}" for k, v in stage_ms.items()) + f" ({smi})")
     scene0 = frames[0]
@@ -1396,10 +1404,10 @@ def batch_phases(fipm, warp_kernel, corr_kernel, dev, smi, single, many):
     # Phase 12: two-phase against one phase on the flagship.
     cfg2 = dataclasses.replace(cfg, two_phase=True)
     one = tm.match_arrays(scene0, pattern, cfg, device=dev)
-    warp_kernel.LAUNCHES = 0
+    k0 = kernel_launches()
     two = tm.match_arrays(scene0, pattern, cfg2, device=dev)
     torch.cuda.synchronize()
-    launches2 = warp_kernel.LAUNCHES
+    launches2 = kernel_launches(k0)[0]
     if launches2 <= 0:
         raise AssertionError("[12 two-phase] no warp kernel launch")
     d = same_results("[12 two-phase]", two, one, 1e-6, 1e-6)
@@ -1430,14 +1438,14 @@ def batch_phases(fipm, warp_kernel, corr_kernel, dev, smi, single, many):
     mcfg = many_target_config(fipm, 100)
     mpat = fipm.learn_pattern(t7, mcfg.min_reduce_area, device=dev)
     fipm.match_many(mframes, mpat, mcfg, device=dev)
-    corr_kernel.LAUNCHES = 0
+    k0 = kernel_launches()
     corr_kernel.path_blocks(reset=True)
     res = fipm.match_many(mframes, mpat, mcfg, device=dev)
     torch.cuda.synchronize()
     n_int8, n_f32 = corr_kernel.path_blocks(reset=True)
     log(f"[11 many-target batch] 2 frames: correlation kernel launches "
-        f"{corr_kernel.LAUNCHES} (blocks int8 {n_int8}, f32 {n_f32})")
-    if corr_kernel.LAUNCHES != 1 or n_int8 <= 0 or n_f32:
+        f"{kernel_launches(k0)[1]} (blocks int8 {n_int8}, f32 {n_f32})")
+    if kernel_launches(k0)[1] != 1 or n_int8 <= 0 or n_f32:
         raise AssertionError("the two frames did not share one int8 "
                              "correlation launch")
     for i, (r, t) in enumerate(zip(res, (truth7, truth8))):
@@ -1482,11 +1490,11 @@ def batch_phases(fipm, warp_kernel, corr_kernel, dev, smi, single, many):
     for ch in FONT_5X7:
         m.learn(ch, glyph(ch))
     m.match_all(plate)
-    warp_kernel.LAUNCHES = corr_kernel.LAUNCHES = 0
+    k0 = kernel_launches()
     m.match_all(plate)
     torch.cuda.synchronize()
     log(f"[13 ocr] kernel launches of one batched read: warp "
-        f"{warp_kernel.LAUNCHES}, correlation {corr_kernel.LAUNCHES} (tol "
+        f"{kernel_launches(k0)[0]}, correlation {kernel_launches(k0)[1]} (tol "
         f"0: the canvases are the plate itself and the ROIs translated, and "
         f"the top score map is below the correlation kernel's 65536 "
         f"outputs)")
@@ -1546,11 +1554,11 @@ def batch_phases(fipm, warp_kernel, corr_kernel, dev, smi, single, many):
     if sizes != [8, 8, 8, 1] or not n_stack:
         raise AssertionError(f"[14 corpus] batches {sizes}, {n_stack} "
                              "launches on a stack of sources")
-    warp_kernel.LAUNCHES = 0
+    k0 = kernel_launches()
     reports = list(fipm.inspect_corpus(corpus, spat, scfg, batch_size=8,
                                        device=dev))
     torch.cuda.synchronize()
-    if warp_kernel.LAUNCHES <= 0:
+    if kernel_launches(k0)[0] <= 0:
         raise AssertionError("[14 corpus] no warp kernel launch")
     if [r.index for r in reports] != list(range(len(corpus))):
         raise AssertionError("[14 corpus] reports out of order")
@@ -1559,7 +1567,7 @@ def batch_phases(fipm, warp_kernel, corr_kernel, dev, smi, single, many):
                 for r, c in zip(reports, centres))
     ms = [r.execution_ms for r in reports]
     log(f"[14 corpus] {len(corpus)} frames in batches {sizes}, warp kernel "
-        f"launches {warp_kernel.LAUNCHES}: target found "
+        f"launches {kernel_launches(k0)[0]}: target found "
         f"in every frame, at most {worst:.3f} px off; ms per frame "
         f"{[round(v, 3) for v in sorted(set(ms), key=ms.index)]} (batches "
         f"of 8, 8, 8, then the {straggler.shape[1]}x{straggler.shape[2]} "
@@ -1751,9 +1759,9 @@ def cli_phase(fipm, warp_kernel, corr_kernel, dev, smi):
                     "--max-pos", "3", "--score", "0.7", "--tolerance-angle",
                     "180", "--max-overlap", "0.1"]
             run_cli(argv)
-            warp_kernel.LAUNCHES = corr_kernel.LAUNCHES = 0
+            k0 = kernel_launches()
             text, ms = run_cli(argv)
-            launches = (warp_kernel.LAUNCHES, corr_kernel.LAUNCHES)
+            launches = kernel_launches(k0)
             got = json.loads(text)
             want = fipm.match(scene, fipm.learn_pattern(templ, 256,
                                                         device=dev),
@@ -2032,55 +2040,65 @@ def native_phase(fipm, dev, smi, gxx_s):
 
 
 def profiling_phase(fipm, dev, smi, single):
-    """Phase 19: StageTimer's split of the flagship's stages against the
-    same stages timed with CUDA events, and device_trace's Chrome trace."""
+    """Phase 19: the port's span table against device_trace's Chrome
+    trace of the same flagship match: every stage span in both, on one
+    clock (each table span within 5 ms of the trace's range of the same
+    name and order), the children of fipm.match covering at least 95% of
+    its host time, and the warp kernel named."""
     import torch
-    from fastest_image_pattern_matching_tpu_torch.models import (
-        template_matcher as tm)
-    from fastest_image_pattern_matching_tpu_torch.ops.pyramid import (
-        build_pyramid)
+    from fastest_image_pattern_matching_tpu_torch.utils import profiling
     from fastest_image_pattern_matching_tpu_torch.utils.profiling import (
-        StageTimer, device_trace)
+        device_trace)
 
     scene, templ, _ = flagship_scene()
     cfg = flagship_config(fipm)
     pattern = fipm.learn_pattern(templ, 256, device=dev)
     fipm.match(scene, pattern, cfg, device=dev)
-    events, timers = [], []
-    for _ in range(3):
-        events.append(stage_times(tm, build_pyramid, scene, pattern, cfg,
-                                  dev))
-        timers.append(stage_times(tm, build_pyramid, scene, pattern, cfg,
-                                  dev, timer=StageTimer()))
-    rows, bad = [], []
-    for k in events[0]:
-        ev = [e[k] for e in events]
-        ti = statistics.median(t[k] for t in timers)
-        e_med = statistics.median(ev)
-        # The run's noise: the events' own spread, a millisecond of host
-        # jitter, or a quarter of the stage.
-        tol = max(3 * (max(ev) - min(ev)), 1.0, 0.25 * e_med)
-        rows.append(f"{k} {ti:.3f}/{e_med:.3f}/{single['stage_ms'][k]:.3f}")
-        if abs(ti - e_med) > tol:
-            bad.append((k, ti, e_med, tol))
-    log("[19 profiling] stage ms, StageTimer / CUDA events (medians of 3, "
-        "in turns) / phase 4's events: " + ", ".join(rows) + f" ({smi})")
-    if bad:
-        raise AssertionError(f"[19 profiling] StageTimer's split is off the "
-                             f"events' beyond the noise: {bad}")
+    splits = [stage_times(fipm, scene, pattern, cfg, dev) for _ in range(3)]
+    log("[19 profiling] stage host ms from the span table (medians of 3; "
+        "phase 4's): " + ", ".join(
+            f"{k} {statistics.median(s[k] for s in splits):.3f}/"
+            f"{single['stage_ms'].get(k, float('nan')):.3f}"
+            for k in splits[0]) + f" ({smi})")
+    profiling.reset_spans()
     with tempfile.TemporaryDirectory() as tmp:
         with device_trace(tmp):
             fipm.match(scene, pattern, cfg, device=dev)
             torch.cuda.synchronize()
+        rows = profiling.spans()
+        profiling.reset_spans()
         with open(os.path.join(tmp, "trace.json")) as f:
             trace = json.load(f)
-        names = [e.get("name", "") for e in trace["traceEvents"]]
-        n_warp = sum("warp_affine_kernel" in n for n in names)
-        log(f"[19 profiling] device_trace: {len(names)} trace events, "
-            f"{n_warp} of the warp kernel (warp_affine_kernel)")
-        if not n_warp:
-            raise AssertionError("[19 profiling] the trace does not name the "
-                                 "warp kernel")
+    events = trace["traceEvents"]
+    names = [e.get("name", "") for e in events]
+    n_warp = sum("warp_affine_kernel" in n for n in names)
+    # Chrome trace times: us after baseTimeNanoseconds; the table's: ns
+    # on the same clock.
+    base = trace.get("baseTimeNanoseconds", 0)
+    ranges = sorted((base + e["ts"] * 1e3, base + (e["ts"] + e["dur"]) * 1e3,
+                     e["name"]) for e in events
+                    if e.get("cat") == "user_annotation"
+                    and e.get("name", "").startswith("fipm."))
+    entry = next(i for i, r in enumerate(rows) if r.name == "fipm.match")
+    whole = rows[entry].end_ns - rows[entry].start_ns
+    kids = sum(r.end_ns - r.start_ns for r in rows if r.parent == entry)
+    far = [(r.name, n) for r, (a, b, n) in zip(rows, ranges)
+           if r.name != n or abs(r.start_ns - a) > 5e6
+           or abs(r.end_ns - b) > 5e6]
+    log(f"[19 profiling] device_trace: {len(names)} trace events, "
+        f"{n_warp} of the warp kernel (warp_affine_kernel); span table "
+        f"{len(rows)} rows, trace {len(ranges)} fipm ranges, fipm.match "
+        f"{whole / 1e6:.3f} ms, its children cover {kids / whole:.4f}")
+    if not n_warp:
+        raise AssertionError("[19 profiling] the trace does not name the "
+                             "warp kernel")
+    if len(ranges) != len(rows) or far:
+        raise AssertionError(f"[19 profiling] the table and the trace "
+                             f"disagree: {len(rows)} rows, {len(ranges)} "
+                             f"ranges, off: {far[:5]}")
+    if kids < 0.95 * whole:
+        raise AssertionError("[19 profiling] fipm.match's children cover "
+                             f"{kids / whole:.4f} of it")
 
 
 def distributed_phase(fipm, warp_kernel, corr_kernel, dev, smi):
@@ -2156,10 +2174,10 @@ def distributed_phase(fipm, warp_kernel, corr_kernel, dev, smi):
         cfg = flagship_config(fipm)
         pattern = fipm.learn_pattern(templ, 256, device=dev)
         want = fipm.match_many_arrays(frames, pattern, cfg, device=dev)
-        warp_kernel.LAUNCHES = 0
+        k0 = kernel_launches()
         got = fipm.match_batch_sharded(frames, pattern, cfg, mesh)
         torch.cuda.synchronize()
-        warp_launches = warp_kernel.LAUNCHES
+        warp_launches = kernel_launches(k0)[0]
         for i in range(frames.shape[0]):
             same_results(f"[20 distributed] flagship frame {i}",
                          {k: v[i] for k, v in got.items()},
@@ -2184,10 +2202,10 @@ def distributed_phase(fipm, warp_kernel, corr_kernel, dev, smi):
         mcfg = many_target_config(fipm, 100)
         mpat = fipm.learn_pattern(t7, mcfg.min_reduce_area, device=dev)
         want = fipm.match_many_arrays(mframes, mpat, mcfg, device=dev)
-        corr_kernel.LAUNCHES = 0
+        k0 = kernel_launches()
         got = fipm.match_batch_sharded(mframes, mpat, mcfg, mesh)
         torch.cuda.synchronize()
-        corr_launches = corr_kernel.LAUNCHES
+        corr_launches = kernel_launches(k0)[1]
         for i in range(2):
             same_results(f"[20 distributed] Test7 frame {i}",
                          {k: v[i] for k, v in got.items()},
@@ -2377,12 +2395,12 @@ def aot_phase(fipm, warp_kernel, corr_kernel, dev, smi, warp, corr,
         """run() with both kernels' counts set to 0 just before; returns
         (result, ms, warp launches, correlation launches)."""
         torch.cuda.synchronize()
-        warp_kernel.LAUNCHES = corr_kernel.LAUNCHES = 0
+        k0 = kernel_launches()
         t0 = time.perf_counter()
         out = run()
         torch.cuda.synchronize()
-        return (out, (time.perf_counter() - t0) * 1e3, warp_kernel.LAUNCHES,
-                corr_kernel.LAUNCHES)
+        return (out, (time.perf_counter() - t0) * 1e3, kernel_launches(k0)[0],
+                kernel_launches(k0)[1])
 
     def same_lists(tag, got, want):
         if len(got) != len(want):
@@ -2780,7 +2798,7 @@ def decode_phase(fipm, warp_kernel, corr_kernel, dev, smi):
         want_corpus = list(fipm.inspect_corpus(list(sframes), spat, scfg,
                                                batch_size=8, device=dev))
         torch.cuda.synchronize()
-        warp_kernel.LAUNCHES = corr_kernel.LAUNCHES = 0
+        k0 = kernel_launches()
         worst = {}
         pairs = list(zip(d_flag, wants)) + [(d_pal, wants[0])]
         for i, (f, want) in enumerate(pairs):
@@ -2808,7 +2826,7 @@ def decode_phase(fipm, warp_kernel, corr_kernel, dev, smi):
                            "--score", "0.7", "--tolerance-angle", "180",
                            "--max-overlap", "0.1"])
         torch.cuda.synchronize()
-        launches = (warp_kernel.LAUNCHES, corr_kernel.LAUNCHES)
+        launches = kernel_launches(k0)
         got = json.loads(out.getvalue()) if rc == 0 else {"count": -1}
         want = fipm.match(frames[0], pattern, cfg, device=dev)
         same = got["count"] == len(want) == 3 and all(
@@ -2968,61 +2986,34 @@ def card_vs_cpu(tag, tm, scene, pattern, cfg, dev, n_targets, score_atol):
                              "the CPU")
 
 
-def stage_times(tm, build_pyramid, scene, pattern, cfg, dev, timer=None):
-    """Per-stage times of one call, composed from the same stage functions
-    match() and match_many() run; `scene` is one image or a stack of
-    frames [N, H, W]. CUDA events between the stages, or with `timer` (a
-    utils/profiling.py::StageTimer) its stages, each ended by a device
-    synchronise; returns the {stage: ms} split."""
+def stage_times(fipm, scene, pattern, cfg, dev):
+    """Per-stage host ms of one call of match() (`scene` one image) or
+    match_many_arrays() (a stack of frames [N, H, W]), from the port's
+    span table (utils/profiling.py::spans()) under torch.profiler: the
+    inclusive ms of fipm.prepare, fipm.pyramid, fipm.sweep, fipm.select,
+    each fipm.descent.L<l> (as descend_L<l>), fipm.finalize and
+    fipm.readback. Nothing synchronises between the stages."""
     import torch
-    from fastest_image_pattern_matching_tpu_torch.models import batch
-    if scene.ndim == 3:
-        plan, stats, args = batch._prepare_batch(scene, pattern, cfg, None,
-                                                 dev)
-    else:
-        plan, stats, args = tm._prepare(scene, pattern, cfg, dev)
-    st = tm.build_stages(plan, stats, dev)
-    src, templs, inv_mats, trans, valid_wh, angles = args
-    marks = []
-
-    def mark(name):
-        e = torch.cuda.Event(enable_timing=True)
-        e.record()
-        marks.append((name, e))
-
-    @contextlib.contextmanager
-    def stage(name):
-        if timer is None:
-            yield
-            mark(name)
+    from fastest_image_pattern_matching_tpu_torch.utils import profiling
+    profiling.reset_spans()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        if scene.ndim == 3:
+            fipm.match_many_arrays(scene, pattern, cfg, device=dev)
         else:
-            with timer.stage(name, sync=src):
-                yield
-
-    torch.cuda.synchronize()
-    mark("start")
-    with stage("pyramid"):
-        pyr = build_pyramid(st.prep_src(src), plan.top)
-    with stage("sweep"):
-        vals, locs = st.sweep_maps(pyr[plan.top], templs[plan.top], inv_mats,
-                                   valid_wh)
-    with stage("select"):
-        pt, ang, score, alive = st.select_candidates(vals, locs, trans,
-                                                     angles)
-        ptLT, ang, fidx = st.unrotate(pt, ang)
-        score, alive = score.reshape(-1), alive.reshape(-1)
-    for l in range(plan.top - 1, plan.stop - 1, -1):
-        with stage(f"descend_L{l}"):
-            ptLT, ang, score, alive, fidx = st.descend_range(
-                pyr, templs, ptLT, ang, score, alive, fidx, l, l)
-    scale = 1.0 if plan.stop == 0 else 2.0
-    with stage("finalize"):
-        st.finalize(ptLT * scale, ang, score, alive, fidx, src.shape[0])
-    torch.cuda.synchronize()
-    if timer is not None:
-        return timer.summary()
-    return {name: prev.elapsed_time(e)
-            for (_, prev), (name, e) in zip(marks, marks[1:])}
+            fipm.match(scene, pattern, cfg, device=dev)
+    rows = profiling.spans()
+    profiling.reset_spans()
+    out = {}
+    for r in rows:
+        name = r.name[len("fipm."):]
+        if name.startswith("descent.L"):
+            name = "descend_" + name[len("descent."):]
+        elif name not in ("prepare", "pyramid", "sweep", "select",
+                          "finalize", "readback"):
+            continue
+        out[name] = out.get(name, 0.0) + (r.end_ns - r.start_ns) / 1e6
+    return out
 
 
 if __name__ == "__main__":

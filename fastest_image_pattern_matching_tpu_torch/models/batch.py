@@ -35,10 +35,11 @@ from ..config import MatchConfig
 from ..ops.pyramid import build_pyramid
 from ..types import LearnedPattern, MatchResult
 from ..utils.device import resolve_device
+from ..utils.profiling import span
 from .template_matcher import (_check_u8, _dispatch, _pack_result,
                                _pattern_inputs, _plan_inputs, _prep_src,
-                               _unpack_result, build_stages, match_arrays,
-                               upload_frames)
+                               _results, _unpack_result, build_stages,
+                               match_arrays, upload_frames)
 
 
 def _next_bucket(n: int) -> int:
@@ -88,10 +89,19 @@ def match_many_arrays(
     batch_bucket: the JAX package's static batch size; here only checked
     (it may not be below B), since padded frames are not computed.
     """
-    cfg = cfg or MatchConfig()
+    with span("fipm.match_many"):
+        return _match_many_arrays(srcs, pattern, cfg or MatchConfig(),
+                                  batch_bucket, device)
+
+
+def _match_many_arrays(srcs, pattern: LearnedPattern, cfg: MatchConfig,
+                       batch_bucket: Optional[int], device
+                       ) -> Dict[str, np.ndarray]:
     dev = resolve_device(device)
-    plan, stats, args = _prepare_batch(srcs, pattern, cfg, batch_bucket, dev)
-    st = build_stages(plan, stats, dev)
+    with span("fipm.prepare"):
+        plan, stats, args = _prepare_batch(srcs, pattern, cfg, batch_bucket,
+                                           dev)
+        st = build_stages(plan, stats, dev)
     outs = [_unpack_result(p) for p in _dispatch(st, args, cfg)]
     # Frames over the NMS cap (rare) run again alone with the cap lifted.
     for i, o in enumerate(outs):
@@ -105,20 +115,7 @@ def match_many_arrays(
 
 def _results_from_arrays(out: Dict[str, np.ndarray], i: int,
                          pattern: LearnedPattern) -> List[MatchResult]:
-    results = []
-    for j in range(out["valid"].shape[1]):
-        if not out["valid"][i][j]:
-            continue
-        c = out["corners"][i][j]
-        r = MatchResult(
-            score=float(out["score"][i][j]), angle=float(out["angle"][i][j]),
-            center=tuple(out["center"][i][j].tolist()),
-            lt=tuple(c[0].tolist()), rt=tuple(c[1].tolist()),
-            rb=tuple(c[2].tolist()), lb=tuple(c[3].tolist()))
-        if pattern.regions:
-            r.regions = tuple(r.project_points(reg) for reg in pattern.regions)
-        results.append(r)
-    return results
+    return _results({k: v[i] for k, v in out.items()}, pattern)
 
 
 def match_many(srcs, pattern: LearnedPattern,
@@ -128,9 +125,11 @@ def match_many(srcs, pattern: LearnedPattern,
     """Batched front door: B frames in, a MatchResult list per frame out
     (see match_many_arrays)."""
     cfg = cfg or MatchConfig()
-    out = match_many_arrays(srcs, pattern, cfg, batch_bucket, device)
-    return [_results_from_arrays(out, i, pattern)
-            for i in range(out["valid"].shape[0])]
+    with span("fipm.match_many"):
+        out = _match_many_arrays(srcs, pattern, cfg, batch_bucket, device)
+        with span("fipm.results"):
+            return [_results_from_arrays(out, i, pattern)
+                    for i in range(out["valid"].shape[0])]
 
 
 class BatchMatcher:

@@ -19,6 +19,7 @@ from ..config import MatchConfig
 from ..parallel.matcher import match_batch_sharded
 from ..types import LearnedPattern, MatchResult
 from ..utils.device import resolve_device
+from ..utils.profiling import span
 from .batch import _next_bucket, _results_from_arrays, match_many_arrays
 
 
@@ -66,7 +67,9 @@ def inspect_corpus(
                 device=dev)
         ms = (time.perf_counter() - t0) * 1000 / len(buf)
         for k, i in enumerate(idx):
-            yield FrameReport(i, _results_from_arrays(out, k, pattern), ms)
+            with span("fipm.results"):
+                results = _results_from_arrays(out, k, pattern)
+            yield FrameReport(i, results, ms)
         buf, idx = [], []
 
     cur_shape = None

@@ -21,6 +21,7 @@ import ctypes
 
 import torch
 
+from ...utils.profiling import count
 from . import build, launch
 
 SOURCE = "ccorr_valid.cu"
@@ -29,10 +30,6 @@ SOURCE = "ccorr_valid.cu"
 # (fastest_image_pattern_matching_tpu/ops/pallas/corr_kernel.py:78-83).
 MAX_W = 129
 MAX_H = 64
-
-# Launches of the CUDA kernel in this process; the plain path on the CPU
-# does not count.
-LAUNCHES = 0
 
 _LIB = None
 
@@ -66,8 +63,9 @@ def _lib() -> ctypes.CDLL:
 def ccorr_valid_cuda(canvases_c: torch.Tensor, templ_c: torch.Tensor
                      ) -> torch.Tensor:
     """[B, H, W] x [h, w] -> [B, H-h+1, W-w+1] f32 on the current stream;
-    raises on anything the kernel does not take."""
-    global LAUNCHES
+    raises on anything the kernel does not take. Each launch counts as
+    "corr.launches" (utils/profiling.py::counter); the plain path on the
+    CPU does not count."""
     if canvases_c.ndim != 3 or templ_c.ndim != 2:
         raise ValueError(f"bad shapes canvases {tuple(canvases_c.shape)}, "
                          f"templ {tuple(templ_c.shape)}")
@@ -102,7 +100,7 @@ def ccorr_valid_cuda(canvases_c: torch.Tensor, templ_c: torch.Tensor
     if err != 0:
         raise RuntimeError("ccorr_valid kernel launch failed: "
                            + lib.fipm_ccorr_error_string(err).decode())
-    LAUNCHES += 1
+    count("corr.launches")
     return out
 
 

@@ -20,13 +20,10 @@ from typing import Optional, Tuple
 
 import torch
 
+from ...utils.profiling import count
 from . import build, launch
 
 SOURCE = "warp_affine.cu"
-
-# Launches of the CUDA kernel in this process; the plain path on the CPU
-# does not count.
-LAUNCHES = 0
 
 _LIB = None
 
@@ -57,8 +54,9 @@ def warp_affine_cuda(src: torch.Tensor, inv_mats: torch.Tensor,
 
     src is one source [H, W], or a stack [N, H, W] with src_index [B]
     int32 on the same card: map b samples source src_index[b]. The index
-    is checked to lie in [0, N) (one host read of its range)."""
-    global LAUNCHES
+    is checked to lie in [0, N) (one host read of its range). Each launch
+    counts as "warp.launches" (utils/profiling.py::counter); the plain
+    path on the CPU does not count."""
     if not (src.is_cuda and inv_mats.is_cuda and src.device == inv_mats.device):
         raise ValueError(f"warp_affine_cuda needs both tensors on one CUDA "
                          f"device, got {src.device} and {inv_mats.device}")
@@ -106,7 +104,7 @@ def warp_affine_cuda(src: torch.Tensor, inv_mats: torch.Tensor,
     if err != 0:
         raise RuntimeError("warp_affine kernel launch failed: "
                            + lib.fipm_error_string(err).decode())
-    LAUNCHES += 1
+    count("warp.launches")
     return out
 
 

@@ -41,6 +41,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..utils.profiling import span
 from .cuda import corr_kernel
 from .rounding import f32, fma
 
@@ -152,6 +153,11 @@ def auto_method(H: int, W: int, h: int, w: int) -> str:
     return "fft" if conv_cost > fft_cost else "conv"
 
 
+# The correlation of each method by name (ncc_score_map's `method`).
+_CORRELATIONS = {"shiftmm": ccorr_shiftmm, "tiledband": ccorr_tiled,
+                 "fft": ccorr_fft, "conv": ccorr_conv}
+
+
 def ncc_score_map(
     canvases: torch.Tensor,     # [B, H, W] f32 (u8-valued)
     templ: torch.Tensor,        # [h, w] f32 (u8-valued)
@@ -170,6 +176,13 @@ def ncc_score_map(
     "tiledband", or "conv" for a template the kernel does not take) or
     "auto" (auto_method).
     """
+    with span("fipm.ncc"):
+        return _score_map(canvases, templ, templ_mean, templ_norm, inv_area,
+                          result_equal1, method)
+
+
+def _score_map(canvases, templ, templ_mean, templ_norm, inv_area,
+               result_equal1, method):
     h, w = templ.shape
     B, H, W = canvases.shape
     Ho, Wo = H - h + 1, W - w + 1
@@ -184,19 +197,23 @@ def ncc_score_map(
         method = auto_method(H, W, h, w)
     elif method == "banded":
         method = "tiledband" if corr_kernel.eligible(h, w) else "conv"
-    if method == "shiftmm":
-        ccorr_c = ccorr_shiftmm(sc, tc)
-    elif method == "tiledband":
-        ccorr_c = ccorr_tiled(sc, tc)
-    elif method == "fft":
-        ccorr_c = ccorr_fft(sc, tc)
-    elif method == "conv":
-        ccorr_c = ccorr_conv(sc, tc)
-    else:
+    correlate = _CORRELATIONS.get(method)
+    if correlate is None:
         raise ValueError(f"unknown correlation method {method!r} (expected "
                          "auto|conv|shiftmm|tiledband|banded|fft)")
-    s1c = window_sums(sc, (h, w))
-    s2c = window_sums(sc * sc, (h, w))
+    with span("fipm.ncc.corr"):
+        ccorr_c = correlate(sc, tc)
+    with span("fipm.ncc.sums"):
+        s1c = window_sums(sc, (h, w))
+        s2c = window_sums(sc * sc, (h, w))
+    with span("fipm.ncc.score"):
+        return _scores(ccorr_c, s1c, s2c, templ_mean, templ_norm, inv_area,
+                       area)
+
+
+def _scores(ccorr_c, s1c, s2c, templ_mean, templ_norm, inv_area, area):
+    """The NCC epilogue: the centred correlation and the window sums to
+    scores, with the reference's epsilon and 1.125 guards."""
 
     # Both sums are single-rounding multiply-adds: the cancellation in
     # diff2 = s2c - s1c^2/area is the epilogue's most fragile step, and

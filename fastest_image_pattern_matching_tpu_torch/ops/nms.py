@@ -18,6 +18,7 @@ import math
 
 import torch
 
+from ..utils.profiling import span
 from .rounding import cos_sin, f32
 
 # Clipping a convex polygon by a half-plane adds at most one vertex, so a
@@ -81,8 +82,9 @@ def quad_intersection_area(quad_a: torch.Tensor, quad_b: torch.Tensor
     pts[:, :4] = quad_a
     cnt = torch.full((P,), 4, dtype=torch.int64, device=quad_a.device)
     for k in range(4):
-        pts, cnt = _clip_halfplane(pts, cnt, quad_b[:, k],
-                                   quad_b[:, (k + 1) % 4])
+        with span("fipm.nms.clip"):
+            pts, cnt = _clip_halfplane(pts, cnt, quad_b[:, k],
+                                       quad_b[:, (k + 1) % 4])
     idx = torch.arange(_MAXV, device=pts.device)[None, :]
     succ = torch.where(idx + 1 >= cnt[:, None], 0, idx + 1)
     nxt = torch.gather(pts, 1, succ[..., None].expand(P, _MAXV, 2))
@@ -144,13 +146,24 @@ def filter_overlaps(
     q = torch.gather(quads, 1, order[:, :, None, None].expand(N, n, 4, 2))
     rows = []
     for lo in range(0, n, _ROW_CHUNK):
-        qa = q[:, lo:lo + _ROW_CHUNK]
-        r = qa.shape[1]
-        qa_p = qa[:, :, None].expand(N, r, n, 4, 2).reshape(N * r * n, 4, 2)
-        qb_p = q[:, None].expand(N, r, n, 4, 2).reshape(N * r * n, 4, 2)
-        rows.append(quad_intersection_area(qa_p, qb_p).reshape(N, r, n))
-    pair_area = torch.cat(rows, dim=1)  # [f, i, j]: quad i clipped by quad j
-    rnd = f32 if quads.dtype == torch.float32 else float
+        with span("fipm.nms.area"):
+            qa = q[:, lo:lo + _ROW_CHUNK]
+            r = qa.shape[1]
+            qa_p = qa[:, :, None].expand(N, r, n, 4, 2).reshape(
+                N * r * n, 4, 2)
+            qb_p = q[:, None].expand(N, r, n, 4, 2).reshape(N * r * n, 4, 2)
+            rows.append(quad_intersection_area(qa_p, qb_p).reshape(N, r, n))
+    with span("fipm.nms.greedy"):
+        return _greedy(torch.cat(rows, dim=1), quads.dtype, templ_area,
+                       max_overlap, slot, used, order, keep)
+
+
+def _greedy(pair_area, dtype, templ_area, max_overlap, slot, used, order,
+            keep):
+    """filter_overlaps' greedy rounds over the pair areas [f, i, j] (quad
+    i clipped by quad j) of the valid candidates in slot order; fills and
+    returns keep."""
+    rnd = f32 if dtype == torch.float32 else float
     contain = pair_area >= rnd(templ_area * (1.0 - 1e-6))
     conflict = contain | (pair_area / rnd(templ_area) > rnd(max_overlap))
 

@@ -20,6 +20,7 @@ from typing import Tuple
 
 import torch
 
+from ..utils.profiling import span
 from .rounding import f32
 
 
@@ -34,6 +35,11 @@ def extract_peaks(
     Returns (vals [A, k] f32, locs [A, k, 2] int32 as (x, y)); threshold
     filtering is left to the caller.
     """
+    with span("fipm.peaks"):
+        return _extract_peaks(scores, k, templ_wh, max_overlap)
+
+
+def _extract_peaks(scores, k, templ_wh, max_overlap):
     A, Hs, Ws = scores.shape
     tw, th = templ_wh
     # cv::rectangle fills the inclusive range [x0, x0 + sw - 1]; the int
@@ -51,17 +57,18 @@ def extract_peaks(
     rows = torch.arange(A, device=dev)
     vals, locs = [], []
     for _ in range(k):
-        idx = torch.argmax(flat, dim=1)
-        v = flat[rows, idx]
-        y = (idx // Ws).to(torch.int32)
-        x = (idx % Ws).to(torch.int32)
-        vals.append(v)
-        locs.append(torch.stack([x, y], dim=-1))
-        x0 = torch.trunc(x.to(torch.float32) - off_x).to(torch.int32)
-        y0 = torch.trunc(y.to(torch.float32) - off_y).to(torch.int32)
-        x0 = x0[:, None, None]
-        y0 = y0[:, None, None]
-        in_rect = (((xs >= x0) & (xs <= x0 + sw - 1))
-                   & ((ys >= y0) & (ys <= y0 + sh - 1)))
-        maps.masked_fill_(in_rect, -1.0)
+        with span("fipm.peaks.round"):
+            idx = torch.argmax(flat, dim=1)
+            v = flat[rows, idx]
+            y = (idx // Ws).to(torch.int32)
+            x = (idx % Ws).to(torch.int32)
+            vals.append(v)
+            locs.append(torch.stack([x, y], dim=-1))
+            x0 = torch.trunc(x.to(torch.float32) - off_x).to(torch.int32)
+            y0 = torch.trunc(y.to(torch.float32) - off_y).to(torch.int32)
+            x0 = x0[:, None, None]
+            y0 = y0[:, None, None]
+            in_rect = (((xs >= x0) & (xs <= x0 + sw - 1))
+                       & ((ys >= y0) & (ys <= y0 + sh - 1)))
+            maps.masked_fill_(in_rect, -1.0)
     return torch.stack(vals, dim=1), torch.stack(locs, dim=1)

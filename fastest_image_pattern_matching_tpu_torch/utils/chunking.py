@@ -9,8 +9,10 @@ from __future__ import annotations
 
 import torch
 
+from .profiling import count, span
 
-def chunked_map(fn, xs, n: int, chunk: int, pred=None):
+
+def chunked_map(fn, xs, n: int, chunk: int, pred=None, count_as=None):
     """Apply fn over the leading axis (length n) of the tensor tuple `xs`,
     `chunk` rows at a time, and concatenate the outputs.
 
@@ -24,6 +26,12 @@ def chunked_map(fn, xs, n: int, chunk: int, pred=None):
     alive costs one host sync per call. If no chunk is alive, fn still runs
     once on the first chunk to learn the output shapes, and its output is
     zeroed.
+
+    count_as: with pred, a counter prefix: the rows of the chunks that run
+    are counted as `<count_as>.slots` and the True entries among them as
+    `<count_as>.live` (utils/profiling.py::count), from the same host
+    read. The outputs are joined in a span "fipm.join"
+    (utils/profiling.py::span).
     """
     chunk = max(1, min(chunk, n))
     n_chunks = (n + chunk - 1) // chunk
@@ -34,22 +42,30 @@ def chunked_map(fn, xs, n: int, chunk: int, pred=None):
     else:
         pad = n_chunks * chunk - n
         p = torch.nn.functional.pad(pred.to(torch.int32), (0, pad))
-        run = p.reshape(n_chunks, chunk).any(dim=1).tolist()
+        live = p.reshape(n_chunks, chunk).sum(dim=1,
+                                              dtype=torch.int32).tolist()
+        run = [v > 0 for v in live]
+        if count_as is not None:
+            ran = [b for b, r in zip(bounds, run) if r] or bounds[:1]
+            count(count_as + ".slots", sum(hi - lo for lo, hi in ran))
+            count(count_as + ".live", sum(live))
 
     def call(lo, hi):
         return tuple(fn(tuple(x[lo:hi] for x in xs)))
 
     if all(run):
         outs = [call(lo, hi) for lo, hi in bounds]
-        return tuple(torch.cat([o[k] for o in outs], dim=0)
-                     for k in range(len(outs[0])))
+        with span("fipm.join"):
+            return tuple(torch.cat([o[k] for o in outs], dim=0)
+                         for k in range(len(outs[0])))
     # Dead chunks cost nothing: the outputs start as zeros (one fill each,
     # however many chunks are dead) and the alive chunks are copied in.
     alive = [(lo, hi, call(lo, hi))
              for (lo, hi), a in zip(bounds, run) if a]
     ref = alive[0][2] if alive else call(*bounds[0])
-    full = tuple(y.new_zeros((n,) + y.shape[1:]) for y in ref)
-    for lo, hi, o in alive:
-        for f, y in zip(full, o):
-            f[lo:hi] = y
+    with span("fipm.join"):
+        full = tuple(y.new_zeros((n,) + y.shape[1:]) for y in ref)
+        for lo, hi, o in alive:
+            for f, y in zip(full, o):
+                f[lo:hi] = y
     return full

@@ -29,6 +29,7 @@ import zlib
 import numpy as np
 
 from ...native import decode as native_decode
+from ..profiling import span
 from . import exif_orientation, orient
 
 SIGNATURE = b"\x89PNG\r\n\x1a\n"
@@ -255,6 +256,42 @@ def _samples(rows: np.ndarray, w: int, depth: int, ch: int) -> np.ndarray:
 def read_gray(data: bytes) -> np.ndarray:
     """Decode PNG bytes to 2-D u8 grey as cv2.imread(IMREAD_GRAYSCALE)
     does; raises ValueError on a malformed, corrupt or truncated file."""
+    with span("fipm.decode.inflate"):
+        head, raw = _inflate(data)
+    header, palette, gamma, srgb, sig_bit, orientation = head
+    w, h, depth, ctype = header[:4]
+    ch = _CHANNELS[ctype]
+    bitspp = depth * ch
+    bpp = max(1, bitspp // 8)
+    passes = _passes(header)
+    buf = np.frombuffer(raw, np.uint8)
+    with span("fipm.decode.unfilter"):
+        pos, rows = 0, []
+        for (x0, y0, dx, dy), (ph, pw) in passes:
+            row_bytes = (pw * bitspp + 7) // 8
+            n = ph * (row_bytes + 1)
+            rows.append(_unfilter(buf[pos:pos + n], ph, row_bytes, bpp))
+            pos += n
+    with span("fipm.decode.grey"):
+        img = np.empty((h, w, ch), np.uint16 if depth == 16 else np.uint8)
+        for ((x0, y0, dx, dy), (ph, pw)), r in zip(passes, rows):
+            img[y0::dy, x0::dx] = _samples(r, pw, depth, ch)
+        return _grey(img, depth, ctype, palette, gamma, srgb, sig_bit,
+                     orientation)
+
+
+def _passes(header):
+    """The (x0, y0, dx, dy) and (rows, columns) of each non-empty pass."""
+    w, h, interlace = header[0], header[1], header[6]
+    passes = (_ADAM7 if interlace else ((0, 0, 1, 1),))
+    shapes = [((h - y0 + dy - 1) // dy, (w - x0 + dx - 1) // dx)
+              for x0, y0, dx, dy in passes]
+    return [(p, s) for p, s in zip(passes, shapes) if s[0] and s[1]]
+
+
+def _inflate(data: bytes):
+    """The chunks checked and the image data inflated: -> ((IHDR fields,
+    palette, gAMA, sRGB, sBIT, orientation), the filtered rows' bytes)."""
     header, palette, idat = None, None, []
     gamma, srgb, sig_bit, orientation = None, False, 0, 1
     for kind, body in _chunks(data):
@@ -290,14 +327,9 @@ def read_gray(data: bytes) -> np.ndarray:
         raise ValueError("PNG: palette image without PLTE")
     if not idat:
         raise ValueError("PNG: no IDAT")
-    ch = _CHANNELS[ctype]
-    bitspp = depth * ch
-    bpp = max(1, bitspp // 8)
-    passes = (_ADAM7 if interlace else ((0, 0, 1, 1),))
-    shapes = [((h - y0 + dy - 1) // dy, (w - x0 + dx - 1) // dx)
-              for x0, y0, dx, dy in passes]
-    need = sum(ph * ((pw * bitspp + 7) // 8 + 1) for ph, pw in shapes
-               if ph and pw)
+    bitspp = depth * _CHANNELS[ctype]
+    need = sum(ph * ((pw * bitspp + 7) // 8 + 1)
+               for _, (ph, pw) in _passes(header))
     try:
         d = zlib.decompressobj()
         raw = d.decompress(b"".join(idat), need)
@@ -305,17 +337,11 @@ def read_gray(data: bytes) -> np.ndarray:
         raise ValueError(f"PNG: corrupt IDAT stream: {e}") from None
     if len(raw) < need:
         raise ValueError("PNG: not enough image data")
-    buf = np.frombuffer(raw, np.uint8)
-    img = np.empty((h, w, ch), np.uint16 if depth == 16 else np.uint8)
-    pos = 0
-    for (x0, y0, dx, dy), (ph, pw) in zip(passes, shapes):
-        if not (ph and pw):
-            continue
-        row_bytes = (pw * bitspp + 7) // 8
-        n = ph * (row_bytes + 1)
-        rows = _unfilter(buf[pos:pos + n], ph, row_bytes, bpp)
-        pos += n
-        img[y0::dy, x0::dx] = _samples(rows, pw, depth, ch)
+    return (header, palette, gamma, srgb, sig_bit, orientation), raw
+
+
+def _grey(img, depth, ctype, palette, gamma, srgb, sig_bit, orientation):
+    """The samples (h, w, ch) to grey as libpng and OpenCV make it."""
     if ctype in (0, 4):
         grey = img[..., 0]
         if depth < 8:

@@ -27,6 +27,7 @@ import torch
 
 from ..native import bmp as native_bmp
 from .codecs import gray14, orient, png, pnm, tiff
+from .profiling import span
 
 
 def ensure_gray(img, channel_axis_only: bool = False):
@@ -160,9 +161,14 @@ def load_gray(path: str) -> np.ndarray:
     twin without g++); anything else through PIL, which raises ImportError
     when it is missing. A malformed, truncated or corrupt file raises
     ValueError."""
+    with span("fipm.decode"):
+        return _load_gray(path)
+
+
+def _load_gray(path: str) -> np.ndarray:
     if not os.path.exists(path):
         raise FileNotFoundError(path)
-    with open(path, "rb") as f:
+    with span("fipm.decode.read"), open(path, "rb") as f:
         head = f.read(8)
         codec = next((c for c in (png, pnm, tiff) if c.is_magic(head)), None)
         data = head + f.read() if codec is not None else None

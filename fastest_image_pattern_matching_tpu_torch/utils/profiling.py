@@ -1,72 +1,163 @@
-"""Tracing and profiling helpers — the port of
-fastest_image_pattern_matching_tpu/utils/profiling.py.
+"""Tracing and profiling: the port's spans, counters and trace exporter.
 
 The reference's only instrumentation is wall-clock around Match()
 (MatchToolDlg.cpp:783,1072; chrono in src/TemplateMatcher.cpp:117,402).
-Here: stage timers (host wall clock, the device synchronised at the end of
-a stage) and a torch.profiler context that writes a Chrome trace.
+Here:
+
+  * span(name): a named range around a layer's or a stage's code. With
+    the profiler off it costs one flag check and does nothing else. Under
+    any torch.profiler session (device_trace below, or the caller's own)
+    it opens record_function(name), so the range appears in the
+    profiler's trace, and appends one row to an in-memory table (spans()).
+    The table's times are time.time_ns(), the clock the profiler stamps
+    its host events with, so the table can be laid over the device trace.
+  * count(name, n): a process-wide counter (counter(name)); while a span
+    is recording, the increment is also kept on the innermost open span.
+  * device_trace(dir): torch.profiler over a block, written as a Chrome
+    trace.
+
+Spans launch no device work and read nothing back from the device.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
-import json
+import itertools
 import os
+import threading
 import time
 from typing import Dict, List, Optional
 
 import torch
 
+# Rows the span table holds; spans beyond it are counted, not kept.
+TABLE_LIMIT = 1 << 20
 
-def _sync(x) -> None:
-    """Wait for the CUDA device of every tensor in x (a tensor, or a tuple
-    or list of them); CPU tensors need no wait."""
-    if isinstance(x, (tuple, list)):
-        for v in x:
-            _sync(v)
-    elif x.is_cuda:
-        torch.cuda.synchronize(x.device)
+SpanRecord = collections.namedtuple(
+    "SpanRecord", "name parent call thread start_ns end_ns counts")
+SpanRecord.__doc__ = """One span: its name; the table index of the
+innermost span open on the same thread when it began (-1: none, or one
+beyond the table's limit); the id shared by every span of one entry call;
+the thread; start and end in ns on time.time_ns()'s clock (end None while
+open); the counter increments made while it was the innermost open span."""
+
+_profiler_enabled = torch._C._autograd._profiler_enabled
+_lock = threading.Lock()
+_local = threading.local()
+_calls = itertools.count()
+_rows: List[list] = []
+_dropped = 0
+_totals: Dict[str, int] = {}
 
 
-class StageTimer:
-    """Collects named stage durations (device-synchronised)."""
+class _Off:
+    """The shared span of a run without the profiler: does nothing."""
+    __slots__ = ()
 
-    def __init__(self):
-        self.events: List[Dict] = []
+    def __enter__(self):
+        return self
 
-    @contextlib.contextmanager
-    def stage(self, name: str, sync=None):
-        """Times the block. sync: a tensor, or a tuple of them; their CUDA
-        device is synchronised (all of its queued work) before the clock
-        stops, where the JAX package blocks until `sync` is ready."""
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            if sync is not None:
-                _sync(sync)
-            self.events.append({
-                "stage": name,
-                "ms": (time.perf_counter() - t0) * 1000.0,
-                "t": time.time(),
-            })
+    def __exit__(self, *exc):
+        return False
 
-    def summary(self) -> Dict[str, float]:
-        out: Dict[str, float] = {}
-        for e in self.events:
-            out[e["stage"]] = out.get(e["stage"], 0.0) + e["ms"]
-        return out
 
-    def dump(self, path: str) -> None:
-        with open(path, "w") as f:
-            json.dump(self.events, f, indent=1)
+_OFF = _Off()
+
+
+class _Span:
+    __slots__ = ("name", "_rf", "_row")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        self._rf = torch.autograd.profiler.record_function(self.name)
+        self._rf.__enter__()
+        stack = getattr(_local, "stack", None)
+        if stack is None:
+            stack = _local.stack = []
+        parent, call = stack[-1][:2] if stack else (-1, next(_calls))
+        row = [self.name, parent, call, threading.get_ident(),
+               time.time_ns(), None, None]
+        global _dropped
+        with _lock:
+            if len(_rows) < TABLE_LIMIT:
+                idx = len(_rows)
+                _rows.append(row)
+            else:
+                idx, row = -1, None
+                _dropped += 1
+        self._row = row
+        stack.append((idx, call, row))
+        return self
+
+    def __exit__(self, *exc):
+        end = time.time_ns()
+        _local.stack.pop()
+        if self._row is not None:
+            self._row[5] = end
+        self._rf.__exit__(*exc)
+        return False
+
+
+def span(name: str):
+    """A context manager around one layer's or stage's code: a no-op with
+    the profiler off; under a torch.profiler session a record_function
+    range of `name` and a row of the span table."""
+    if not _profiler_enabled():
+        return _OFF
+    return _Span(name)
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add n to the process-wide counter `name`, and to the innermost open
+    span's counts when a span is recording on this thread."""
+    row = None
+    if _profiler_enabled():
+        stack = getattr(_local, "stack", None)
+        row = stack[-1][2] if stack else None
+    with _lock:
+        _totals[name] = _totals.get(name, 0) + n
+        if row is not None:
+            counts = row[6] = row[6] or {}
+            counts[name] = counts.get(name, 0) + n
+
+
+def counter(name: str) -> int:
+    """The process-wide total of counter `name` (0 before its first
+    count)."""
+    return _totals.get(name, 0)
+
+
+def spans() -> List[SpanRecord]:
+    """The span table, in the order the spans began; a row's `parent` is
+    an index into this list."""
+    with _lock:
+        return [SpanRecord(r[0], r[1], r[2], r[3], r[4], r[5],
+                           dict(r[6] or ())) for r in _rows]
+
+
+def dropped_spans() -> int:
+    """Spans not kept since the last reset_spans(): the table was full."""
+    return _dropped
+
+
+def reset_spans() -> None:
+    """Empty the span table (between calls: a span still open then keeps
+    no row)."""
+    global _dropped
+    with _lock:
+        _rows.clear()
+        _dropped = 0
 
 
 @contextlib.contextmanager
 def device_trace(trace_dir: Optional[str]):
     """torch.profiler over the block (CPU and, when there is a card, CUDA
     activity), written as a Chrome trace `trace.json` into trace_dir;
-    a no-op when trace_dir is None. Yields the profiler (or None)."""
+    a no-op when trace_dir is None. Yields the profiler (or None). The
+    port's spans appear in the trace and in spans()."""
     if trace_dir is None:
         yield None
         return

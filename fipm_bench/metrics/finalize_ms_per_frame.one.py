@@ -1,0 +1,7 @@
+"""Host ms a frame inside the port's fipm.finalize spans (score cut, sort, NMS,
+result assembly), from the port's span table over the traced window."""
+from fipm_bench.program import span_ms_per_frame
+
+
+def read(rec):
+    return span_ms_per_frame(rec, "fipm.finalize")

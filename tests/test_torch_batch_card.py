@@ -11,6 +11,7 @@ import torch
 
 from fastest_image_pattern_matching_tpu_torch.ops import warp as twarp
 from fastest_image_pattern_matching_tpu_torch.ops.cuda import warp_kernel
+from fastest_image_pattern_matching_tpu_torch.utils import profiling
 
 # One intra-op thread: the tier-1 run keeps every core busy (six xdist
 # workers), and there torch's spinning OpenMP pool made port calls
@@ -40,13 +41,13 @@ def test_warp_kernel_stack_matches_plain_on_card(cuda_device, quantize):
         for v in a]).astype(np.float32), device=cuda_device)
     idx = torch.as_tensor(rng.integers(0, 3, 12), dtype=torch.int32,
                           device=cuda_device)
-    before = warp_kernel.LAUNCHES
+    before = profiling.counter("warp.launches")
     got = warp_kernel.warp_affine_cuda(srcs, maps, (137, 197), 7.0, quantize,
                                        idx)
     want = twarp.warp_affine_batch(srcs, maps, (137, 197), 7.0, quantize,
                                    src_index=idx)
     torch.cuda.synchronize()
-    assert warp_kernel.LAUNCHES == before + 1
+    assert profiling.counter("warp.launches") == before + 1
     if quantize:
         assert torch.equal(got, want)
     else:

@@ -25,6 +25,7 @@ from fastest_image_pattern_matching_tpu_torch.ops.cuda import (corr_kernel,
                                                            warp_kernel)
 from fastest_image_pattern_matching_tpu_torch.utils import device as tdevice
 from fastest_image_pattern_matching_tpu_torch.utils import geometry
+from fastest_image_pattern_matching_tpu_torch.utils import profiling
 
 # One intra-op thread: the tier-1 run keeps every core busy (six xdist
 # workers), and there torch's spinning OpenMP pool made port calls
@@ -94,17 +95,19 @@ def test_kernel_module_imports_without_nvcc_and_cpu_takes_plain():
     env = dict(os.environ, PATH=os.path.dirname(sys.executable),
                CUDA_HOME="/nonexistent", CUDA_PATH="/nonexistent")
     code = ("import fastest_image_pattern_matching_tpu_torch.ops.cuda."
-            "warp_kernel as w; assert w._LIB is None and w.LAUNCHES == 0")
+            "warp_kernel as w; from fastest_image_pattern_matching_tpu_torch."
+            "utils.profiling import counter; assert w._LIB is None and "
+            "counter('warp.launches') == 0")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                    check=True, timeout=120)
     src = torch.as_tensor(np.random.default_rng(2).integers(
         0, 256, (60, 80)).astype(np.float32))
     maps = _maps(src.shape, [0.0, 33.0, -120.0], (3.5, -2.0))
-    before = warp_kernel.LAUNCHES
+    before = profiling.counter("warp.launches")
     got = twarp.warp_affine_dispatch(src, maps, (30, 41), 17.0)
     want = twarp.warp_affine_batch(src, maps, (30, 41), 17.0, quantize=True)
     assert torch.equal(got, want)
-    assert warp_kernel.LAUNCHES == before
+    assert profiling.counter("warp.launches") == before
 
 
 def test_kernel_wrapper_rejects_cpu_tensors():
@@ -149,7 +152,7 @@ def test_warp_kernel_matches_plain_on_card(cuda_device, out_hw, B, border):
     maps = _maps(src.shape, rng.uniform(-180, 180, B),
                  (rng.uniform(-200, 200), rng.uniform(-200, 200)))
     maps = maps.to(cuda_device)
-    before = warp_kernel.LAUNCHES
+    before = profiling.counter("warp.launches")
     for q in (True, False):
         got = twarp.warp_affine_dispatch(src, maps, out_hw, border, q)
         want = twarp.warp_affine_batch(src, maps, out_hw, border, quantize=q)
@@ -158,7 +161,7 @@ def test_warp_kernel_matches_plain_on_card(cuda_device, out_hw, B, border):
             assert torch.equal(got, want)
         else:
             torch.testing.assert_close(got, want, atol=5e-3, rtol=0)
-    assert warp_kernel.LAUNCHES == before + 2
+    assert profiling.counter("warp.launches") == before + 2
 
 
 def _check_warp_on_card(src, maps, out_hw, border):
@@ -237,10 +240,10 @@ def test_tiledband_regime_launches_kernel_on_card(cuda_device):
                         device=cuda_device)
     stats = (float(t.double().mean()), 1234.5, 1 / 30.0, False)
     assert tncc.auto_method(300, 300, 5, 6) == "tiledband"
-    before = corr_kernel.LAUNCHES
+    before = profiling.counter("corr.launches")
     got = tncc.ncc_score_map(canv, t, *stats)
     torch.cuda.synchronize()
-    assert corr_kernel.LAUNCHES == before + 1
+    assert profiling.counter("corr.launches") == before + 1
     want = tncc.ncc_score_map(canv.cpu(), t.cpu(), *stats)
     torch.testing.assert_close(got.cpu(), want, atol=1e-6, rtol=0)
     sc, tc = canv - 128.0, t - 128.0
@@ -264,11 +267,11 @@ def test_corr_kernel_matches_plain_on_card(cuda_device, shape):
                         device=cuda_device)
     T = torch.as_tensor(rng.integers(-128, 128, (h, w)).astype(np.float32),
                         device=cuda_device)
-    before = corr_kernel.LAUNCHES
+    before = profiling.counter("corr.launches")
     got = corr_kernel.ccorr_valid_cuda(S, T)
     want = tncc.ccorr_tiled_ref(S, T)
     torch.cuda.synchronize()
-    assert corr_kernel.LAUNCHES == before + 1
+    assert profiling.counter("corr.launches") == before + 1
     assert torch.equal(got, want)
     Sf = S + torch.as_tensor(rng.uniform(-0.5, 0.5, S.shape).astype(
         np.float32), device=cuda_device)
@@ -312,7 +315,9 @@ def test_corr_kernel_module_imports_without_nvcc():
                CUDA_HOME="/nonexistent", CUDA_PATH="/nonexistent")
     code = ("import fastest_image_pattern_matching_tpu_torch.ops.cuda."
             "corr_kernel as c; import fastest_image_pattern_matching_tpu_"
-            "torch.ops.ncc; assert c._LIB is None and c.LAUNCHES == 0")
+            "torch.ops.ncc; from fastest_image_pattern_matching_tpu_torch."
+            "utils.profiling import counter; assert c._LIB is None and "
+            "counter('corr.launches') == 0")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                    check=True, timeout=120)
 

@@ -1,0 +1,312 @@
+"""The port's spans and counters (utils/profiling.py) on the CPU: nothing
+recorded with the profiler off; under torch.profiler every span of match
+and match_many, nested as the stages nest, one call id a call, on the
+profiler's clock, with the results unchanged; the descent's live and slot
+counters; the PNG decode's split; chunked_map's chunks."""
+
+import threading
+
+import cv2
+import numpy as np
+import pytest
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+import fastest_image_pattern_matching_tpu_torch as tfipm
+from fastest_image_pattern_matching_tpu_torch.utils import chunking
+from fastest_image_pattern_matching_tpu_torch.utils import profiling
+from fastest_image_pattern_matching_tpu_torch.utils.codecs import png
+from fastest_image_pattern_matching_tpu_torch.utils.imageio import load_gray
+from tests.test_torch_match import _paste_rotated
+
+# One intra-op thread: the tier-1 run keeps every core busy (six xdist
+# workers), and there torch's spinning OpenMP pool made port calls
+# about 50x slower (one overflow case: 466 s, 10 s on one thread).
+torch.set_num_threads(1)
+
+# Each span of a match and the spans it may open inside ("L" stands for
+# every fipm.descent.L<l>).
+PARENT = {
+    "fipm.prepare": ("fipm.match",), "fipm.upload": ("fipm.prepare",),
+    "fipm.pyramid": ("fipm.match",), "fipm.sweep": ("fipm.match",),
+    "fipm.sweep.chunk": ("fipm.sweep",),
+    "fipm.ncc": ("fipm.sweep.chunk", "fipm.descent.chunk"),
+    "fipm.ncc.corr": ("fipm.ncc",), "fipm.ncc.sums": ("fipm.ncc",),
+    "fipm.ncc.score": ("fipm.ncc",),
+    "fipm.peaks": ("fipm.sweep.chunk",), "fipm.peaks.round": ("fipm.peaks",),
+    "fipm.select": ("fipm.match",), "fipm.descent": ("fipm.match",),
+    "L": ("fipm.descent",), "fipm.descent.chunk": ("L",),
+    "fipm.descent.maps": ("fipm.descent.chunk",),
+    "fipm.descent.warp": ("fipm.descent.chunk",),
+    "fipm.descent.best": ("fipm.descent.chunk",),
+    "fipm.join": ("L",), "fipm.descent.pick": ("L",),
+    "fipm.descent.subpixel": ("fipm.descent.pick",),
+    "fipm.finalize": ("fipm.match",),
+    "fipm.nms": ("fipm.finalize",), "fipm.nms.area": ("fipm.nms",),
+    "fipm.nms.clip": ("fipm.nms.area",), "fipm.nms.greedy": ("fipm.nms",),
+    "fipm.finalize.pick": ("fipm.finalize",),
+    "fipm.readback": ("fipm.match",), "fipm.results": ("fipm.match",),
+}
+
+
+def _kind(name):
+    return "L" if name.startswith("fipm.descent.L") else name
+
+
+@pytest.fixture(scope="module")
+def problem():
+    """Two 200x240 frames with a 40x56 part at 20 and -15 deg; the plan's
+    top layer (2) is above its stop layer (0), so the candidates
+    descend."""
+    t = np.full((40, 56), 30, np.uint8)
+    cv2.rectangle(t, (4, 4), (51, 35), 200, 2)
+    cv2.line(t, (8, 8), (48, 30), 255, 3)
+    frames = []
+    for k, a in enumerate((20.0, -15.0)):
+        f = np.random.default_rng(20 + k).integers(0, 30, (200, 240),
+                                                   np.uint8)
+        _paste_rotated(f, t, 96.0, 80.0, a)
+        frames.append(f)
+    cfg = tfipm.MatchConfig(max_pos=2, score=0.6, tolerance_angle=30.0,
+                            max_overlap=0.3)
+    pattern = tfipm.learn_pattern(t, cfg.min_reduce_area, device="cpu")
+    assert pattern.top_layer > 0
+    return np.stack(frames), pattern, cfg
+
+
+def _traced(fn):
+    """fn() under the CPU profiler: (its value, the span table, the
+    profiler's fipm.* ranges as (name, start ns, end ns) in start order)."""
+    profiling.reset_spans()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        out = fn()
+    rows = profiling.spans()
+    profiling.reset_spans()
+    ranges = sorted((e.start_ns(), e.end_ns(), e.name())
+                    for e in prof.profiler.kineto_results.events()
+                    if e.name().startswith("fipm."))
+    return out, rows, [(n, a, b) for a, b, n in ranges]
+
+
+def _rows_of(results):
+    return [(r.score, r.angle, r.center, r.lt, r.rt, r.rb, r.lb)
+            for r in results]
+
+
+def _check_tree(rows, entry, results=True):
+    """Every span of PARENT under `entry` (fipm.results only where the
+    entry builds MatchResults), nested as PARENT says, one call id."""
+    names = {r.name for r in rows}
+    want = set(PARENT) - {"L", "fipm.match"} | {entry}
+    if not results:
+        want.discard("fipm.results")
+    assert want <= names, want - names
+    assert any(n.startswith("fipm.descent.L") for n in names)
+    assert len({r.call for r in rows}) == 1
+    assert len({r.thread for r in rows}) == 1
+    for r in rows:
+        assert r.end_ns is not None and r.end_ns >= r.start_ns
+        if r.name == entry:
+            assert r.parent == -1
+            continue
+        p = rows[r.parent]
+        parents = {entry if n == "fipm.match" else n
+                   for n in PARENT[_kind(r.name)]}
+        assert _kind(p.name) in parents, (r.name, p.name)
+        assert p.start_ns <= r.start_ns and r.end_ns <= p.end_ns
+
+
+def test_span_is_a_shared_noop_with_the_profiler_off():
+    profiling.reset_spans()
+    assert profiling.span("fipm.a") is profiling.span("fipm.b")
+    with profiling.span("fipm.a"):
+        profiling.count("test.off", 2)
+    assert profiling.spans() == []
+    assert profiling.counter("test.off") >= 2
+
+
+def test_profiler_off_records_nothing(problem):
+    frames, pattern, cfg = problem
+    profiling.reset_spans()
+    slots = profiling.counter("descent.slots")
+    tfipm.match(frames[0], pattern, cfg, device="cpu")
+    tfipm.match_many(frames, pattern, cfg, device="cpu")
+    assert profiling.spans() == [] and profiling.dropped_spans() == 0
+    assert profiling.counter("descent.slots") > slots
+
+
+def test_match_spans_nest_share_a_call_and_leave_results(problem):
+    frames, pattern, cfg = problem
+    plain = tfipm.match(frames[0], pattern, cfg, device="cpu")
+    traced, rows, _ = _traced(
+        lambda: tfipm.match(frames[0], pattern, cfg, device="cpu"))
+    assert _rows_of(traced) == _rows_of(plain) and len(plain) >= 1
+    _check_tree(rows, "fipm.match")
+    assert [r.name for r in rows].count("fipm.match") == 1
+
+
+def test_match_many_spans_nest_share_a_call_and_leave_results(problem):
+    frames, pattern, cfg = problem
+    plain = tfipm.match_many_arrays(frames, pattern, cfg, device="cpu")
+    traced, rows, _ = _traced(
+        lambda: tfipm.match_many_arrays(frames, pattern, cfg, device="cpu"))
+    for k in plain:
+        np.testing.assert_array_equal(traced[k], plain[k])
+    _check_tree(rows, "fipm.match_many", results=False)
+    many, rows, _ = _traced(
+        lambda: tfipm.match_many(frames, pattern, cfg, device="cpu"))
+    _check_tree(rows, "fipm.match_many")
+    assert [_rows_of(m) for m in many] == [
+        _rows_of(tfipm.match(f, pattern, cfg, device="cpu"))
+        for f in frames]
+
+
+def test_each_call_has_its_own_call_id(problem):
+    frames, pattern, cfg = problem
+
+    def twice():
+        tfipm.match(frames[0], pattern, cfg, device="cpu")
+        tfipm.match(frames[1], pattern, cfg, device="cpu")
+    _, rows, _ = _traced(twice)
+    entries = [i for i, r in enumerate(rows) if r.name == "fipm.match"]
+    assert len(entries) == 2
+    first = {r.call for r in rows[:entries[1]]}
+    second = {r.call for r in rows[entries[1]:]}
+    assert len(first) == len(second) == 1 and first != second
+
+
+def test_table_lies_on_the_profilers_clock(problem):
+    frames, pattern, cfg = problem
+    _, rows, ranges = _traced(
+        lambda: tfipm.match(frames[0], pattern, cfg, device="cpu"))
+    assert [r.name for r in rows] == [n for n, _, _ in ranges]
+    for r, (_, a, b) in zip(rows, ranges):
+        assert abs(r.start_ns - a) < 5e6 and abs(r.end_ns - b) < 5e6
+
+
+def test_descent_counts_live_and_slots(problem):
+    frames, pattern, cfg = problem
+    results, rows, _ = _traced(
+        lambda: tfipm.match(frames[0], pattern, cfg, device="cpu"))
+    counts = [r.counts for r in rows if r.counts]
+    assert counts and all(_kind(r.name) == "L" for r in rows if r.counts)
+    live = sum(c.get("descent.live", 0) for c in counts)
+    slots = sum(c.get("descent.slots", 0) for c in counts)
+    levels = sum(1 for r in rows if _kind(r.name) == "L")
+    assert len(counts) == levels
+    assert len(results) <= live <= slots
+
+
+def test_png_decode_splits_into_four_children(tmp_path):
+    img = np.random.default_rng(3).integers(0, 256, (37, 53), np.uint8)
+    path = str(tmp_path / "f.png")
+    with open(path, "wb") as f:
+        f.write(png.encode_gray8(img))
+    got, rows, _ = _traced(lambda: load_gray(path))
+    np.testing.assert_array_equal(got, img)
+    assert [r.name for r in rows] == [
+        "fipm.decode", "fipm.decode.read", "fipm.decode.inflate",
+        "fipm.decode.unfilter", "fipm.decode.grey"]
+    assert all(r.parent == 0 for r in rows[1:])
+    assert all(a.end_ns <= b.start_ns for a, b in zip(rows[1:], rows[2:]))
+
+
+@pytest.mark.parametrize("alive", [
+    [0, 0, 1, 0, 0, 0, 0, 0, 1, 1, 0],   # interior dead chunks
+    [1] * 11,                            # every chunk runs
+    [0] * 11,                            # none alive: the first runs
+])
+def test_chunked_map_runs_the_same_chunks(alive):
+    """The chunks that run are those holding a True entry (the first one
+    when none does), as before the counters; slots and live count them."""
+    n, chunk = len(alive), 3
+    pred = torch.tensor(alive, dtype=torch.bool)
+    ran = []
+
+    def fn(args):
+        ran.append(int(args[0][0]))
+        return (args[0] * 2,)
+    x = torch.arange(n)
+    s0, l0 = (profiling.counter("t.slots"), profiling.counter("t.live"))
+    out = chunking.chunked_map(fn, (x,), n, chunk, pred=pred,
+                               count_as="t")[0]
+    bounds = [(lo, min(n, lo + chunk)) for lo in range(0, n, chunk)]
+    want = [lo for lo, hi in bounds if any(alive[lo:hi])] or [0]
+    assert ran == want
+    for lo, hi in bounds:
+        expect = (x[lo:hi] * 2 if any(alive[lo:hi]) or all(alive)
+                  else torch.zeros(hi - lo, dtype=x.dtype))
+        assert torch.equal(out[lo:hi], expect)
+    assert profiling.counter("t.slots") - s0 == sum(
+        min(n, lo + chunk) - lo for lo in want)
+    assert profiling.counter("t.live") - l0 == sum(alive)
+
+
+def test_counts_go_to_the_innermost_span_and_the_total():
+    def body():
+        with profiling.span("fipm.outer"):
+            profiling.count("t.c")
+            with profiling.span("fipm.inner"):
+                profiling.count("t.c", 5)
+    before = profiling.counter("t.c")
+    _, rows, _ = _traced(body)
+    assert [(r.name, r.counts) for r in rows] == [
+        ("fipm.outer", {"t.c": 1}), ("fipm.inner", {"t.c": 5})]
+    assert profiling.counter("t.c") == before + 6
+
+
+def test_a_failing_span_closes_and_the_stack_unwinds():
+    def body():
+        with pytest.raises(ValueError):
+            with profiling.span("fipm.bad"):
+                raise ValueError("x")
+        with profiling.span("fipm.next"):
+            pass
+    _, rows, _ = _traced(body)
+    assert [(r.name, r.parent) for r in rows] == [("fipm.bad", -1),
+                                                 ("fipm.next", -1)]
+    assert rows[0].end_ns is not None and rows[0].call != rows[1].call
+
+
+def test_a_thread_outside_the_profiler_records_nothing():
+    """torch.profiler is on for the threads it covers (this one); a span
+    on another thread is the no-op one, and this thread's stack is
+    untouched by it."""
+    seen = []
+
+    def worker():
+        seen.append(profiling.span("fipm.worker"))
+        with seen[0]:
+            pass
+
+    def body():
+        with profiling.span("fipm.main"):
+            t = threading.Thread(target=worker)
+            t.start()
+            t.join(timeout=30)
+            assert not t.is_alive()
+            with profiling.span("fipm.after"):
+                pass
+    _, rows, _ = _traced(body)
+    assert seen == [profiling.span("fipm.off")]
+    assert [(r.name, r.parent) for r in rows] == [("fipm.main", -1),
+                                                 ("fipm.after", 0)]
+
+
+def test_the_table_is_bounded(monkeypatch):
+    monkeypatch.setattr(profiling, "TABLE_LIMIT", 2)
+
+    def body():
+        for _ in range(2):
+            with profiling.span("fipm.kept"):
+                pass
+        with profiling.span("fipm.dropped"):
+            with profiling.span("fipm.child"):
+                pass
+    profiling.reset_spans()
+    with profile(activities=[ProfilerActivity.CPU]):
+        body()
+    assert [r.name for r in profiling.spans()] == ["fipm.kept"] * 2
+    assert profiling.dropped_spans() == 2
+    profiling.reset_spans()
+    assert profiling.spans() == [] and profiling.dropped_spans() == 0
