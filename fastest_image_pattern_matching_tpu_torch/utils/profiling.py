@@ -11,6 +11,9 @@ Here:
     profiler's trace, and appends one row to an in-memory table (spans()).
     The table's times are time.time_ns(), the clock the profiler stamps
     its host events with, so the table can be laid over the device trace.
+    The profiler covers only the threads it was started on; a helper
+    thread working for one of them records rows (and no range) inside
+    traced_for(True).
   * count(name, n): a process-wide counter (counter(name)); while a span
     is recording, the increment is also kept on the innermost open span.
   * device_trace(dir): torch.profiler over a block, written as a Chrome
@@ -49,6 +52,9 @@ _calls = itertools.count()
 _rows: List[list] = []
 _dropped = 0
 _totals: Dict[str, int] = {}
+# Threads inside traced_for(True); while none is, the off path checks
+# nothing else.
+_helpers = 0
 
 
 class _Off:
@@ -68,12 +74,14 @@ _OFF = _Off()
 class _Span:
     __slots__ = ("name", "_rf", "_row")
 
-    def __init__(self, name: str):
+    def __init__(self, name: str, ranged: bool = True):
         self.name = name
+        self._rf = (torch.autograd.profiler.record_function(name)
+                    if ranged else None)
 
     def __enter__(self):
-        self._rf = torch.autograd.profiler.record_function(self.name)
-        self._rf.__enter__()
+        if self._rf is not None:
+            self._rf.__enter__()
         stack = getattr(_local, "stack", None)
         if stack is None:
             stack = _local.stack = []
@@ -97,24 +105,56 @@ class _Span:
         _local.stack.pop()
         if self._row is not None:
             self._row[5] = end
-        self._rf.__exit__(*exc)
+        if self._rf is not None:
+            self._rf.__exit__(*exc)
         return False
 
 
 def span(name: str):
     """A context manager around one layer's or stage's code: a no-op with
     the profiler off; under a torch.profiler session a record_function
-    range of `name` and a row of the span table."""
-    if not _profiler_enabled():
-        return _OFF
-    return _Span(name)
+    range of `name` and a row of the span table; inside traced_for(True)
+    a row alone."""
+    if _profiler_enabled():
+        return _Span(name)
+    if _helpers and getattr(_local, "helping", False):
+        return _Span(name, ranged=False)
+    return _OFF
+
+
+def tracing() -> bool:
+    """Whether spans on this thread record: the profiler covers it, or
+    it is inside traced_for(True)."""
+    return _profiler_enabled() or bool(
+        _helpers and getattr(_local, "helping", False))
+
+
+@contextlib.contextmanager
+def traced_for(on: bool):
+    """Run the block as a helper of a thread whose tracing() was `on`:
+    when on, spans of the block on this thread keep rows in the table
+    (under their own thread id and call ids) without opening a
+    record_function range, which the profiler would not see from here."""
+    global _helpers
+    if not on:
+        yield
+        return
+    with _lock:
+        _helpers += 1
+    _local.helping = True
+    try:
+        yield
+    finally:
+        _local.helping = False
+        with _lock:
+            _helpers -= 1
 
 
 def count(name: str, n: int = 1) -> None:
     """Add n to the process-wide counter `name`, and to the innermost open
     span's counts when a span is recording on this thread."""
     row = None
-    if _profiler_enabled():
+    if _profiler_enabled() or _helpers:
         stack = getattr(_local, "stack", None)
         row = stack[-1][2] if stack else None
     with _lock:

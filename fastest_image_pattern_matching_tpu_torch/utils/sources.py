@@ -14,11 +14,15 @@ the device computes).
 from __future__ import annotations
 
 import abc
+import collections
 import glob
 import os
+from concurrent.futures import ThreadPoolExecutor
 from typing import Iterator, List, Optional
 
 import numpy as np
+
+from .profiling import count, span, traced_for, tracing
 
 
 class FrameSource(abc.ABC):
@@ -34,10 +38,14 @@ class FrameSource(abc.ABC):
 
 
 class FileSource(FrameSource):
-    """A fixed list of image files in order. An all-BMP list decodes on
-    n_threads native threads (native/loader.py::BatchLoader) when the
-    native library can be built; anything else, one file after another
-    through load_gray."""
+    """A fixed list of image files, yielded in order. An all-BMP list
+    decodes on n_threads native threads (native/loader.py::BatchLoader)
+    when the native library can be built; any other list through
+    load_gray on a pool of n_threads Python threads (zlib and the native
+    decode loops release the interpreter lock), at most 2 * n_threads
+    frames ahead of the consumer. A file that fails to decode raises
+    where its frame would have been yielded. Each frame yielded counts
+    as source.frames, each decoded on the pool also as source.pooled."""
 
     def __init__(self, paths: List[str], n_threads: int = 4):
         self.paths = list(paths)
@@ -50,14 +58,46 @@ class FileSource(FrameSource):
             from ..native.loader import BatchLoader
             with BatchLoader(self.paths, self._n_threads) as bl:
                 for i, p in enumerate(self.paths):
-                    img = bl.take(i)
+                    with span("fipm.source.take"):
+                        img = bl.take(i)
+                        if img is not None:
+                            count("source.frames")
                     if img is None:
                         raise ValueError(f"cannot decode BMP: {p}")
                     yield img
             return
-        from .imageio import load_gray
-        for p in self.paths:
-            yield load_gray(p)
+        yield from self._pooled()
+
+    def _pooled(self) -> Iterator[np.ndarray]:
+        """load_gray over the paths on a thread pool, in order. The pool's
+        spans record while the consuming thread's do (read at each take),
+        so decode time under the profiler is summed over the workers."""
+        from . import imageio
+        n = max(1, self._n_threads)
+        traced = [tracing()]
+
+        def decode(path):
+            with traced_for(traced[0]), span("fipm.source.decode"):
+                img = imageio.load_gray(path)
+                count("source.pooled")
+                return img
+
+        ex = ThreadPoolExecutor(n, thread_name_prefix="fipm-decode")
+        try:
+            ahead = collections.deque(
+                ex.submit(decode, p) for p in self.paths[:2 * n])
+            rest = iter(self.paths[2 * n:])
+            while ahead:
+                traced[0] = tracing()
+                with span("fipm.source.take"):
+                    img = ahead.popleft().result()
+                    count("source.frames")
+                nxt = next(rest, None)
+                if nxt is not None:
+                    ahead.append(ex.submit(decode, nxt))
+                yield img
+        finally:
+            ex.shutdown(wait=True, cancel_futures=True)
 
 
 class FolderSource(FileSource):

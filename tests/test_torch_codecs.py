@@ -12,10 +12,13 @@ held at 0 differing pixels against the JAX package where cv2 imports,
 and decoded again with PIL hidden, where it must give the same array.
 """
 
+import gc
 import os
 import struct
 import subprocess
 import sys
+import threading
+import time
 import zlib
 
 import numpy as np
@@ -688,6 +691,140 @@ def test_folder_of_pngs_streams_without_pil(tmp_path, monkeypatch):
     assert len(got) == 3
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g, w)
+
+
+# ------------------------------------------- FileSource's read-ahead pool
+
+def _mixed_files(tmp_path, n=11):
+    """n frames as PNG, PGM and TIFF files in turn (more than twice the
+    pool's threads, so the read-ahead refills), and their arrays."""
+    rng = _rng("pool")
+    paths, want = [], []
+    for i in range(n):
+        img = rng.integers(0, 256, (H + i, W)).astype(np.uint8)
+        kind = i % 3
+        p = tmp_path / f"f{i:02d}.{('png', 'pgm', 'tif')[kind]}"
+        p.write_bytes((png_bytes(img, 8, 0), pnm_bytes(5, img, 255),
+                       tiff_bytes(img, 8, 1, "<", 8))[kind])
+        paths.append(str(p))
+        want.append(img)
+    return paths, want
+
+
+def _decode_threads():
+    return [t for t in threading.enumerate()
+            if t.name.startswith("fipm-decode")]
+
+
+@pytest.mark.parametrize("n_threads", [1, 4])
+@pytest.mark.parametrize("source", ["files", "folder"])
+def test_pool_gives_serial_load_gray_in_order(tmp_path, source, n_threads):
+    """A FileSource of PNG, PGM and TIFF files and a FolderSource of PNGs
+    (FolderSource globs *.bmp, *.jpg, *.png and *.jpeg): bit-equal to
+    load_gray on this thread, in path order."""
+    paths, _ = _mixed_files(tmp_path)
+    if source == "folder":
+        paths = sorted(p for p in paths if p.endswith(".png"))
+        src = tsrc.FolderSource(str(tmp_path), n_threads=n_threads)
+        assert src.paths == paths
+    else:
+        src = tsrc.FileSource(paths, n_threads=n_threads)
+    got = list(src)
+    assert len(got) == len(paths)
+    for g, p in zip(got, paths):
+        np.testing.assert_array_equal(g, tio.load_gray(p))
+    assert not _decode_threads()
+
+
+@pytest.mark.parametrize("n_threads", [1, 4])
+def test_pool_raises_a_corrupt_file_in_its_place(tmp_path, n_threads):
+    """The k-th file's ValueError, of load_gray's own message, comes after
+    frames 0..k-1 and no later frame."""
+    paths, want = _mixed_files(tmp_path)
+    k = 5
+    bad = REFUSED["png_idat_crc"][0](str(tmp_path / "bad"), _rng("bad"))
+    paths[k] = bad
+    with pytest.raises(ValueError) as serial:
+        tio.load_gray(bad)
+    got = []
+    with pytest.raises(ValueError) as pooled:
+        for img in tsrc.FileSource(paths, n_threads=n_threads):
+            got.append(img)
+    assert str(pooled.value) == str(serial.value)
+    assert len(got) == k
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    assert not _decode_threads()
+
+
+@pytest.mark.parametrize("stop", ["close", "drop"])
+def test_pool_stops_with_its_consumer(tmp_path, stop):
+    """Closing or dropping the generator after two frames cancels the
+    decodes not started and ends every worker thread."""
+    paths, want = _mixed_files(tmp_path)
+    before = set(threading.enumerate())
+    frames = iter(tsrc.FileSource(paths, n_threads=4))
+    for i in range(2):
+        np.testing.assert_array_equal(next(frames), want[i])
+    assert _decode_threads()
+    if stop == "close":
+        frames.close()
+    else:
+        del frames
+        gc.collect()
+    assert set(threading.enumerate()) == before
+
+
+def test_read_ahead_holds_at_most_two_frames_a_thread(monkeypatch):
+    """With a slow stand-in for load_gray, the pool starts frame i + 2n
+    (n threads) once frame i is taken, and never a later one."""
+    n, total = 2, 12
+    started = []
+    lock = threading.Lock()
+
+    def slow(path):
+        with lock:
+            started.append(path)
+        time.sleep(0.005)
+        return np.full((2, 3), int(path[1:3]), np.uint8)
+    monkeypatch.setattr(tio, "load_gray", slow)
+    paths = [f"f{i:02d}.png" for i in range(total)]
+    frames = iter(tsrc.FileSource(paths, n_threads=n))
+    for i in range(total):
+        assert next(frames)[0, 0] == i
+        bound = min(total, i + 1 + 2 * n)
+        deadline = time.monotonic() + 30
+        while len(started) < bound and time.monotonic() < deadline:
+            time.sleep(0.001)
+        time.sleep(0.02)
+        assert len(started) == bound
+    assert next(frames, None) is None
+    assert started == paths
+
+
+def test_source_counts_frames_and_pooled(tmp_path):
+    """source.frames for each frame yielded, on the pool and through the
+    BMP loader; source.pooled for each frame a pool thread decoded."""
+    from fastest_image_pattern_matching_tpu_torch.native import bmp
+    from fastest_image_pattern_matching_tpu_torch.utils import profiling
+    paths, _ = _mixed_files(tmp_path, 5)
+    bmps = []
+    for i in range(3):
+        bmps.append(str(tmp_path / f"b{i}.bmp"))
+        tio.save_gray(bmps[-1], _rng("bmp").integers(0, 256, (H, W)).astype(
+            np.uint8))
+
+    def deltas(src):
+        f0, p0 = (profiling.counter("source.frames"),
+                  profiling.counter("source.pooled"))
+        n = len(list(src))
+        return (n, profiling.counter("source.frames") - f0,
+                profiling.counter("source.pooled") - p0)
+    assert deltas(tsrc.FileSource(paths)) == (5, 5, 5)
+    assert deltas(tsrc.FileSource(paths + bmps[:1])) == (6, 6, 6)
+    assert deltas(tsrc.FileSource(bmps)) == (
+        3, 3, 0 if bmp.available() else 3)
+    assert deltas(tsrc.FileSource([])) == (0, 0, 0)
 
 
 @pytest.mark.parametrize("ext", [".jpg", ".webp"])

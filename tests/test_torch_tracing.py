@@ -293,6 +293,45 @@ def test_a_thread_outside_the_profiler_records_nothing():
                                                  ("fipm.after", 0)]
 
 
+def test_pool_decode_spans_record_for_a_traced_consumer(tmp_path):
+    """FileSource's pool decodes on its own threads. Under the profiler on
+    the consuming thread their decode spans are rows of the table under
+    the workers' thread ids, with no profiler range; the benchmark's
+    readers find inflate and unfilter time in them. The consumer's waits
+    are fipm.source.take ranges, counting source.frames; the workers count
+    source.pooled. With the profiler off nothing is recorded."""
+    from fastest_image_pattern_matching_tpu_torch.utils import sources
+    from fipm_bench import program
+    rng = np.random.default_rng(5)
+    for i in range(6):
+        (tmp_path / f"f{i}.png").write_bytes(
+            png.encode_gray8(rng.integers(0, 256, (64, 80), np.uint8)))
+    src = sources.FolderSource(str(tmp_path), n_threads=3)
+    me = threading.get_ident()
+    frames, rows, ranges = _traced(lambda: list(src))
+    assert len(frames) == 6
+    by = {}
+    for r in rows:
+        by.setdefault(r.name, []).append(r)
+    for name in ("fipm.source.decode", "fipm.decode", "fipm.decode.read",
+                 "fipm.decode.inflate", "fipm.decode.unfilter",
+                 "fipm.decode.grey"):
+        assert len(by[name]) == 6, name
+        assert all(r.thread != me and r.end_ns is not None
+                   for r in by[name]), name
+    assert [r.thread for r in by["fipm.source.take"]] == [me] * 6
+    assert {n for n, _, _ in ranges} == {"fipm.source.take"}
+    assert program.counts(rows, "source.frames") == 6
+    assert program.counts(rows, "source.pooled") == 6
+    assert program.counter_pct({}, "source.pooled", "source.frames",
+                               rows) == 100.0
+    for name in ("fipm.decode.inflate", "fipm.decode.unfilter"):
+        assert program.span_ms_per_frame({"frames": 6}, name, rows) > 0
+    profiling.reset_spans()
+    assert len(list(src)) == 6
+    assert profiling.spans() == [] and profiling._helpers == 0
+
+
 def test_the_table_is_bounded(monkeypatch):
     monkeypatch.setattr(profiling, "TABLE_LIMIT", 2)
 
