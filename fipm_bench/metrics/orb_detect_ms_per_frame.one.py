@@ -1,0 +1,12 @@
+"""Host ms a frame inside the port's fipm.orb.detect spans (the template's
+and the frame's features, every level: resize, FAST, Harris, selection,
+orientation, rBRIEF), from the port's span table over the traced window;
+no reading where the port opens no such span."""
+from fipm_bench.program import span_ms_per_frame, table
+
+
+def read(rec):
+    rows = table()
+    if not any(r[0] == "fipm.orb.detect" for r in rows):
+        return None
+    return span_ms_per_frame(rec, "fipm.orb.detect", rows)

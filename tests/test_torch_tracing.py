@@ -2,7 +2,9 @@
 recorded with the profiler off; under torch.profiler every span of match
 and match_many, nested as the stages nest, one call id a call, on the
 profiler's clock, with the results unchanged; the descent's live and slot
-counters; the PNG decode's split; chunked_map's chunks."""
+counters; the PNG decode's split; chunked_map's chunks; the spans and
+counters of orb_match and orb_match_many, results bit-equal with the
+profiler on and off."""
 
 import threading
 
@@ -17,6 +19,7 @@ from fastest_image_pattern_matching_tpu_torch.utils import chunking
 from fastest_image_pattern_matching_tpu_torch.utils import profiling
 from fastest_image_pattern_matching_tpu_torch.utils.codecs import png
 from fastest_image_pattern_matching_tpu_torch.utils.imageio import load_gray
+from fipm_bench import program
 from tests.test_torch_match import _paste_rotated
 
 # One intra-op thread: the tier-1 run keeps every core busy (six xdist
@@ -349,3 +352,103 @@ def test_the_table_is_bounded(monkeypatch):
     assert profiling.dropped_spans() == 2
     profiling.reset_spans()
     assert profiling.spans() == [] and profiling.dropped_spans() == 0
+
+
+# Each span of an ORB call and the span it opens inside.
+ORB_PARENT = {
+    "fipm.orb.upload": "fipm.orb", "fipm.upload": "fipm.orb.upload",
+    "fipm.orb.detect": "fipm.orb", "fipm.orb.level": "fipm.orb.detect",
+    "fipm.orb.resize": "fipm.orb.level", "fipm.orb.fast": "fipm.orb.level",
+    "fipm.orb.harris": "fipm.orb.level", "fipm.orb.select": "fipm.orb.level",
+    "fipm.orb.orient": "fipm.orb.level",
+    "fipm.orb.describe": "fipm.orb.level",
+    "fipm.orb.match": "fipm.orb", "fipm.orb.ransac": "fipm.orb",
+    "fipm.orb.ransac.hyp": "fipm.orb.ransac",
+    "fipm.orb.ransac.lo": "fipm.orb.ransac",
+    "fipm.orb.readback": "fipm.orb", "fipm.orb.results": "fipm.orb",
+}
+
+
+@pytest.fixture(scope="module")
+def orb_problem():
+    """Two 240x320 frames of the benchmark's textured-part scene, each
+    holding a 96x128 part, and the default ORBConfig."""
+    from fipm_bench.scenes import textured_part
+    params = {"frame_hw": [240, 320], "noise": 40,
+              "template": {"hw": [96, 128], "block": 8, "blur": 1.0,
+                           "disc_area": 1500, "disc_r": [3, 9]},
+              "poses": [[160.0, 120.0, -23.0], [150.0, 115.0, 12.0]]}
+    templ, frames, _ = textured_part.make_pool(
+        params, 2, 0, np.random.default_rng(3))
+    return frames, templ, tfipm.ORBConfig()
+
+
+def _orb_fields(r):
+    return (r.is_matched, r.num_inliers, r.num_good_matches,
+            r.avg_pixel_shift, r.homography.tobytes(), r.corners.tobytes(),
+            r.src_pts.tobytes(), r.dst_pts.tobytes(),
+            r.inlier_mask.tobytes(), r.rotation_angle)
+
+
+def _check_orb_tree(rows, cfg, sources):
+    from fastest_image_pattern_matching_tpu_torch.models import orb
+    names = [r.name for r in rows]
+    assert names[0] == "fipm.orb" and names.count("fipm.orb") == 1
+    assert rows[0].parent == -1
+    assert set(ORB_PARENT) <= set(names), set(ORB_PARENT) - set(names)
+    assert len({r.call for r in rows}) == 1
+    for r in rows[1:]:
+        p = rows[r.parent]
+        assert p.name == ORB_PARENT[r.name], (r.name, p.name)
+        assert p.start_ns <= r.start_ns and r.end_ns <= p.end_ns
+    levels = sum(b > 0 for b in orb._level_budgets(cfg))
+    assert names.count("fipm.orb.detect") == 2
+    assert names.count("fipm.orb.level") == 2 * levels
+    for leaf in ("fast", "harris", "select", "orient", "describe"):
+        assert names.count("fipm.orb." + leaf) == 2 * levels
+    assert names.count("fipm.orb.resize") == 2 * (levels - 1)
+    for name in ("fipm.orb.match", "fipm.orb.ransac", "fipm.orb.ransac.hyp",
+                 "fipm.orb.ransac.lo", "fipm.orb.readback"):
+        assert names.count(name) == 1, name
+    # orb.levels counts each level once per image: the template and the
+    # sources.
+    assert program.counts(rows, "orb.levels") == levels * (1 + sources)
+    assert program.counts(rows, "orb.hypotheses") == \
+        cfg.ransac_iters * sources
+    assert program.counts(rows, "orb.frames") == sources
+
+
+def test_orb_profiler_off_records_nothing(orb_problem):
+    frames, templ, cfg = orb_problem
+    profiling.reset_spans()
+    frames_before = profiling.counter("orb.frames")
+    tfipm.orb_match(frames[0], templ, cfg, device="cpu")
+    assert profiling.spans() == [] and profiling.dropped_spans() == 0
+    assert profiling.counter("orb.frames") == frames_before + 1
+
+
+def test_orb_match_spans_nest_count_and_leave_results(orb_problem):
+    frames, templ, cfg = orb_problem
+    plain = tfipm.orb_match(frames[0], templ, cfg, device="cpu")
+    traced, rows, ranges = _traced(
+        lambda: tfipm.orb_match(frames[0], templ, cfg, device="cpu"))
+    assert plain.is_matched
+    assert _orb_fields(traced) == _orb_fields(plain)
+    _check_orb_tree(rows, cfg, 1)
+    assert [r.name for r in rows] == [n for n, _, _ in ranges]
+    assert program.counts(rows, "orb.inliers") == traced.num_inliers
+    assert program.counts(rows, "orb.good") == traced.num_good_matches
+    ransac = [r for r in rows if r.name == "fipm.orb.ransac"][0]
+    assert ransac.counts == {"orb.hypotheses": cfg.ransac_iters}
+
+
+def test_orb_match_many_spans_count_every_frame(orb_problem):
+    frames, templ, cfg = orb_problem
+    plain = tfipm.orb_match_many(frames, templ, cfg, device="cpu")
+    traced, rows, _ = _traced(
+        lambda: tfipm.orb_match_many(frames, templ, cfg, device="cpu"))
+    assert [_orb_fields(r) for r in traced] == \
+        [_orb_fields(r) for r in plain]
+    _check_orb_tree(rows, cfg, len(frames))
+    assert program.counts(rows, "orb.inliers") == sum(
+        r.num_inliers for r in traced)

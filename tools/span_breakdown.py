@@ -12,8 +12,9 @@ is laid over the device trace:
     calling thread (the idle intervals of fipm_bench/trace.py, split
     exactly over the innermost spans, "outside" where none is open), and
     under each stage (the innermost span's ancestor below the entry);
-  * host self ms a frame of each span name, and the share of fipm.match
-    (or fipm.match_many) host time that its children cover;
+  * host self ms a frame of each span name, and the share of the entry
+    spans' (fipm.match, fipm.match_many, fipm.orb) host time that their
+    children cover;
   * the labels fipm_bench/trace.py gives the idle gaps, and the idle it
     leaves unnamed ("python between operators") by innermost span;
   * span sites and counter increments a frame.
@@ -39,11 +40,13 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 
 from fipm_bench import run, trace  # noqa: E402
 
+ENTRIES = ("fipm.match", "fipm.match_many", "fipm.orb")
+
 
 def stage_of(rows, i):
     """The span's stage: its ancestor (or itself) whose parent is a call's
-    entry span (fipm.match, fipm.match_many); the entry's own name for
-    an entry, and the span's top-level name outside any call."""
+    entry span (ENTRIES); the entry's own name for an entry, and the
+    span's top-level name outside any call."""
     chain = [i]
     while 0 <= rows[chain[-1]].parent < len(rows):
         chain.append(rows[chain[-1]].parent)
@@ -160,7 +163,7 @@ def breakdown(rec, events, rows):
     own = self_ms(rows)
     unnamed, unnamed_after = unnamed_by_span(idle, host, segs)
     entry = [i for i, r in enumerate(rows)
-             if r.name in ("fipm.match", "fipm.match_many") and r.parent < 0]
+             if r.name in ENTRIES and r.parent < 0]
     ent_ns = sum(rows[i].end_ns - rows[i].start_ns for i in entry if
                  rows[i].end_ns)
     kids = sum(r.end_ns - r.start_ns for r in rows
