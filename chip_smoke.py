@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one CUDA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py          # every phase
+    python3 chip_smoke.py peaks    # phases 1, 2 and 23
 
 Phases, each of which fails the run (non-zero exit) when it fails:
   1. device: the card's name and power limit; CUDA is required.
-  2. build: compiles both hand-written CUDA kernels (warp, correlation)
-     from the sources in this checkout (nvcc, sm_90a), one nvcc each, in
-     parallel, and the native host library (g++).
+  2. build: compiles the three hand-written CUDA kernels (warp,
+     correlation, peaks) from the sources in this checkout (nvcc,
+     sm_90a), one nvcc each, in parallel, and the native host library
+     (g++).
   3. warp kernel against its plain PyTorch version on the card, at the
      shapes of the flagship's main path (L0 also with all maps at 0, 45
      and 90 deg), a map wholly outside the image and general affine maps
@@ -48,7 +50,7 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      against its bound; wall per batch and per frame, stages, profiler.
  11. Test7 as a batch of two frames (seeds 7 and 8, one washer): 100 of
      100 in each, one correlation launch for both, every block int8; each
-     frame equal to its match(); wall, the peak loop's share, profiler.
+     frame equal to its match(); wall, the peak kernel's share, profiler.
  12. the flagship with two_phase=True equal to one phase (split layer,
      alive count after phase A, bucket, wall).
  13. an OCR plate (36 glyphs of a 5x7 dot-matrix font, tools/ocr_bench.py's
@@ -115,6 +117,12 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      native/decode.py FALLBACKS, codecs/tiff.py PIL_ROUTES all 0); decode
      ms a frame per format and bit depth at 480x640 and 4024x3036, through
      the native loops and (480x640) through their Python twins.
+ 23. the peak kernel against the plain loop (on the CPU), bit for bit, on
+     the score maps one Test7 match (tile form), one flagship match and a
+     flagship batch of 8 (small form) hand to extract_peaks; launches and
+     tile-form calls per match; kernel (host loop, device alone), plain
+     loop on the card and bound; both forms timed on the same maps around
+     the size where the wrapper switches.
 The last three lines of output are the kernels' JSON summary, the card's
 name and power limit, and {"ok": true, "device": {...}}. Imports nothing
 of JAX.
@@ -747,7 +755,7 @@ def main() -> int:
     import fastest_image_pattern_matching_tpu_torch as fipm
     from fastest_image_pattern_matching_tpu_torch import native
     from fastest_image_pattern_matching_tpu_torch.ops.cuda import (
-        build, corr_kernel, warp_kernel)
+        build, corr_kernel, peaks_kernel, warp_kernel)
 
     dev = torch.device("cuda", 0)
     # Phase 1: device.
@@ -757,10 +765,12 @@ def main() -> int:
 
     # Phase 2: build every kernel, one nvcc each, all started together.
     t0 = time.perf_counter()
-    built = build.build_all([warp_kernel.SOURCE, corr_kernel.SOURCE])
+    built = build.build_all([warp_kernel.SOURCE, corr_kernel.SOURCE,
+                             peaks_kernel.SOURCE])
     warp_kernel._lib()
     corr_kernel._lib()
-    log(f"[2 build] both kernels built and loaded in "
+    peaks_kernel._lib()
+    log(f"[2 build] the three kernels built and loaded in "
         f"{time.perf_counter() - t0:.2f} s")
     for path, nvcc_s, report in built:
         log(f"[2 build] {os.path.relpath(path)} nvcc {nvcc_s:.2f} s")
@@ -772,6 +782,12 @@ def main() -> int:
     native.get_lib()
     log(f"[2 build] {os.path.relpath(native_path)} g++ {gxx_s:.2f} s, built "
         f"and loaded in {time.perf_counter() - t0:.2f} s")
+    if sys.argv[1:] == ["peaks"]:
+        print(json.dumps({"kernels": [peaks_phase(fipm, peaks_kernel, dev,
+                                                  smi)]}))
+        print(smi)
+        print(json.dumps({"ok": True, "phases": [1, 2, 23]}), flush=True)
+        return 0
 
     single, warp = flagship_phases(fipm, warp_kernel, dev, smi)
     many, corr = many_target_phases(fipm, corr_kernel, warp_kernel, dev, smi)
@@ -788,7 +804,8 @@ def main() -> int:
         fipm, warp_kernel, corr_kernel, dev, smi, warp, corr, cli_matches)
     warp["decode_launches"], corr["decode_launches"] = decode_phase(
         fipm, warp_kernel, corr_kernel, dev, smi)
-    print(json.dumps({"kernels": [warp, corr]}))
+    peaks = peaks_phase(fipm, peaks_kernel, dev, smi)
+    print(json.dumps({"kernels": [warp, corr, peaks]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1153,7 +1170,7 @@ def many_target_phases(fipm, corr_kernel, warp_kernel, dev, smi):
                        3)
     log(f"[7 many-target] sweep split: score map {tuple(smap.shape)} "
         f"{score_ms:.3f} ms (of which the kernel {km:.3f} ms), peaks "
-        f"(masked, K {plan.k_peaks}) {peaks_ms:.3f} ms ({smi})")
+        f"(the peak kernel, K {plan.k_peaks}) {peaks_ms:.3f} ms ({smi})")
 
     # Phase 8: match_template on the card against the port on the CPU.
     src = np.random.default_rng(12).integers(0, 256, (1000, 1100),
@@ -1474,7 +1491,7 @@ def batch_phases(fipm, warp_kernel, corr_kernel, dev, smi, single, many):
     peaks_ms = cuda_ms(lambda: extract_peaks(smap, plan.k_peaks, (tw_t, th_t),
                                              mcfg.max_overlap), 3)
     log(f"[11 many-target batch] wall per frame {mwall / 2:.2f} ms against "
-        f"{many['wall']:.2f} ms for one match() (phase 7); peak loop on "
+        f"{many['wall']:.2f} ms for one match() (phase 7); peak kernel on "
         f"both maps ({plan.k_peaks} rounds) {peaks_ms:.3f} ms, "
         f"{100 * peaks_ms / mwall:.0f}% of the batch's wall, against "
         f"{many['peaks_ms']:.3f} ms for one map ({smi})")
@@ -2455,7 +2472,7 @@ def aot_phase(fipm, warp_kernel, corr_kernel, dev, smi, warp, corr,
                                  "from phase 10's")
         flag_libs = {k[4:]: bytes(data[k]) for k in data.files
                      if k.startswith("lib_") and not k.endswith("_id")}
-        if sorted(flag_libs) != (["ccorr_valid", "fipm_native",
+        if sorted(flag_libs) != (["ccorr_valid", "fipm_native", "peaks",
                                   "warp_affine"] if dev.type == "cuda"
                                  else ["fipm_native"]):
             raise AssertionError(f"[21 aot] bundled {sorted(flag_libs)}")
@@ -2584,10 +2601,10 @@ def aot_phase(fipm, warp_kernel, corr_kernel, dev, smi, warp, corr,
             if isinstance(v, float)) + f"; process wall {cold_wall:.2f} s "
             f"against {wall:.2f} s from the pack; nvcc runs "
             f"{cold['nvcc_runs']}, g++ runs {cold['gxx_runs']} ({smi})")
-        # The flagship runs the warp kernel only: one nvcc, and one g++
-        # for the BMP codec.
+        # The flagship runs the warp and the peak kernels: two nvcc, and
+        # one g++ for the BMP codec.
         if cold["count"] != len(truth) or cold["gxx_runs"] != 1 \
-                or cold["nvcc_runs"] != (dev.type == "cuda"):
+                or cold["nvcc_runs"] != (2 if dev.type == "cuda" else 0):
             raise AssertionError("[21 aot] the fresh process without the "
                                  "pack did not build from source")
     return w_launches, t7_c
@@ -2890,6 +2907,121 @@ def decode_phase(fipm, warp_kernel, corr_kernel, dev, smi):
             raise AssertionError(f"[22 decode] decode routes gave way: {bad}")
     log(f"[22 decode] phase wall {time.perf_counter() - phase_t0:.1f} s")
     return launches
+
+
+def peaks_phase(fipm, peaks_kernel, dev, smi):
+    """Phase 23: the peak kernel against the plain loop, at the main path's
+    own inputs: the score maps that one Test7 match (one 1798x1798 map, K
+    105: the tile form), one flagship match (41 maps of 60x59, K 8: the
+    small form) and a flagship batch of 8 frames (328 maps) hand to
+    extract_peaks, recorded from the matches; every output bit-equal to
+    the plain loop on the CPU. Launches and tile-form calls per match.
+    Times of the kernel (host loop, and device alone in a CUDA graph) and
+    of the plain loop on the card, in turns, beside the bound (one read of
+    the maps); both forms timed on the same maps at sizes around
+    SMALL_MAX, where the wrapper switches. Returns the kernels-line
+    entry."""
+    import torch
+    from fastest_image_pattern_matching_tpu_torch.models import (
+        template_matcher as tm)
+    from fastest_image_pattern_matching_tpu_torch.ops import peaks as P
+    from fastest_image_pattern_matching_tpu_torch.ops.rounding import f32
+    from fastest_image_pattern_matching_tpu_torch.utils.profiling import (
+        counter)
+
+    scene, templ, _ = many_target_scene(3648, 100)
+    cfg = many_target_config(fipm, 100)
+    pattern = fipm.learn_pattern(templ, cfg.min_reduce_area, device=dev)
+    f_scene, f_templ, _ = flagship_scene()
+    f_cfg = flagship_config(fipm)
+    f_pat = fipm.learn_pattern(f_templ, 256, device=dev)
+    frames = flagship_batch()[0]
+    batch8 = np.concatenate([frames, frames])
+    runs = {
+        "Test7": lambda: fipm.match(scene, pattern, cfg, device=dev),
+        "flagship": lambda: fipm.match(f_scene, f_pat, f_cfg, device=dev),
+        "flagship batch of 8": lambda: fipm.match_many(batch8, f_pat, f_cfg,
+                                                       device=dev)}
+    entry = {"name": "peaks", "route": "cuda",
+             "source": "fastest_image_pattern_matching_tpu_torch/csrc/"
+                       "peaks.cu",
+             "replaces": "none: the JAX package's rounds are XLA operations "
+                         "in a fori_loop (ops/peaks.py::extract_peaks)",
+             "launches": {}, "shapes": {}}
+    for tag, run in runs.items():
+        run()
+        torch.cuda.synchronize()
+        before = (counter("peaks.launches"), counter("peaks.tiled"))
+        calls = record_calls(tm, "extract_peaks", run)
+        torch.cuda.synchronize()
+        launches = (counter("peaks.launches") - before[0],
+                    counter("peaks.tiled") - before[1])
+        entry["launches"][tag] = launches
+        for scores, k, templ_wh, overlap in calls:
+            got = P.extract_peaks(scores, k, templ_wh, overlap)
+            want = P.extract_peaks(scores.cpu(), k, templ_wh, overlap)
+            if not (torch.equal(got[1].cpu(), want[1]) and torch.equal(
+                    got[0].cpu().view(torch.int32),
+                    want[0].view(torch.int32))):
+                raise AssertionError(f"[23 peaks] {tag}: the kernel differs "
+                                     "from the plain loop")
+        scores, k, templ_wh, overlap = calls[0]
+        tw, th = templ_wh
+        sw, sh = int(2 * tw * (1 - overlap)), int(2 * th * (1 - overlap))
+        ox, oy = f32(tw * (1.0 - overlap)), f32(th * (1.0 - overlap))
+        kernel = lambda: P.extract_peaks(scores, k, templ_wh, overlap)
+        plain = lambda: P.extract_peaks_ref(scores, k, sw, sh, ox, oy)
+        km, pm = turns_ms(kernel, plain, 50, 3 if k > 50 else 10)
+        kdm = device_ms(kernel)
+        bms, by = bound_ms(4 * scores.numel(), 0, F32_OPS_PER_S)
+        form = "small" if peaks_kernel.plan(*scores.shape[1:], sw,
+                                            sh) is None else "tile"
+        entry["shapes"][tag] = dict(
+            shape=list(scores.shape), k=k, rect=[sw, sh], form=form,
+            ms=kdm, loop_ms=km, plain_ms=pm, bound_ms=bms)
+        log(f"[23 peaks] {tag}: {len(calls)} call(s), each bit-equal to "
+            f"the plain loop; first {tuple(scores.shape)} K {k} rect "
+            f"{sw}x{sh}, {form} form; kernel loop {km:.4f} ms, device "
+            f"{kdm:.4f} ms ({100 * bms / kdm:.2f}% of bound); plain loop "
+            f"on the card {pm:.3f} ms; bound {bms:.4f} ms by {by}; "
+            f"launches per match {launches[0]}, tile-form calls "
+            f"{launches[1]} ({smi})")
+    if entry["launches"]["Test7"] != (2, 1) or \
+            entry["launches"]["flagship"][1] != 0:
+        raise AssertionError(f"[23 peaks] launches {entry['launches']}: "
+                             "Test7 must take the tile form once, the "
+                             "flagship the small form")
+    # Both forms on the same maps around the switch (K 30, 27x27 rect).
+    rng = np.random.default_rng(23)
+    small_max = peaks_kernel.SMALL_MAX
+    rows = []
+    try:
+        for side in (64, 100, 128, 160, 200):
+            for A in (1, 41):
+                maps = torch.as_tensor(rng.uniform(-1, 1, (A, side, side))
+                                       .astype(np.float32), device=dev)
+                out, ms = {}, {}
+                for form, limit in (("small", 10**9), ("tile", 0)):
+                    peaks_kernel.SMALL_MAX = limit
+                    out[form] = P.extract_peaks(maps, 30, (27, 27), 0.5)
+                    ms[form] = device_ms(
+                        lambda: P.extract_peaks(maps, 30, (27, 27), 0.5))
+                if not (torch.equal(out["small"][0], out["tile"][0])
+                        and torch.equal(out["small"][1], out["tile"][1])):
+                    raise AssertionError(f"[23 peaks] the forms differ at "
+                                         f"{A}x{side}x{side}")
+                rows.append((A, side, ms["small"], ms["tile"]))
+    finally:
+        peaks_kernel.SMALL_MAX = small_max
+    entry["forms"] = rows
+    log("[23 peaks] forms, device ms (K 30, 27x27 rect), small / tile: "
+        + "; ".join(f"{A}x{n}x{n} {a:.4f} / {b:.4f}" for A, n, a, b in rows)
+        + f"; the wrapper switches above {small_max} values ({smi})")
+    t7 = entry["shapes"]["Test7"]
+    entry.update(ms=t7["ms"], plain_ms=t7["plain_ms"],
+                 bound_ms=t7["bound_ms"], bound_by="bytes",
+                 loop_ms=t7["loop_ms"])
+    return entry
 
 
 def profile_match(tag, run, smi, runs=3, frames=1):

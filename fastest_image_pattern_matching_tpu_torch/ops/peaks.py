@@ -3,15 +3,18 @@
 The reference takes the global max of a score map, paints a suppression
 rectangle of 2W(1-overlap) x 2H(1-overlap) around it with -1 and repeats
 (MatchTool/MatchToolDlg.cpp:1558-1582), optionally with its s_BlockMax block
-cache (:1583-1596). Here each of the k rounds is one batched argmax over
-[A, H*W] plus a masked fill; the row-major first-max tie-break of
-cv::minMaxLoc is torch.argmax's documented first-max rule.
+cache (:1583-1596). The row-major first-max tie-break of cv::minMaxLoc is
+torch.argmax's documented first-max rule, a NaN counting as the greatest.
 
-The JAX package serves one large map (A == 1, H*W >= 65536) with a tiled
-BlockMax form instead, which differs from this loop only in cost; the two
-give identical peaks (tests/test_torch_corr.py). On the H100 the masked
-loop is the faster of the two on Test7's 1798x1798 map (PERF.md), so the
-port has only this one.
+Maps on the card go to the hand-written kernel (ops/cuda/peaks_kernel.py,
+csrc/peaks.cu), which runs every round on the card in one of two forms
+picked by the map's size: a small map lives in one block's shared memory
+for all k rounds (one launch, e.g. the flagship's 41 top-layer maps); a
+large one keeps a tile-max cache, the JAX package's _extract_peaks_tiled
+form, and re-scans only the tiles each rectangle touches (two launches,
+e.g. Test7's one 1798x1798 map). Maps on the CPU take the plain version,
+extract_peaks_ref: each of the k rounds is one batched argmax over
+[A, H*W] plus a masked fill. Both give the same peaks bit for bit.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ from typing import Tuple
 import torch
 
 from ..utils.profiling import span
+from .cuda import peaks_kernel
 from .rounding import f32
 
 
@@ -35,12 +39,6 @@ def extract_peaks(
     Returns (vals [A, k] f32, locs [A, k, 2] int32 as (x, y)); threshold
     filtering is left to the caller.
     """
-    with span("fipm.peaks"):
-        return _extract_peaks(scores, k, templ_wh, max_overlap)
-
-
-def _extract_peaks(scores, k, templ_wh, max_overlap):
-    A, Hs, Ws = scores.shape
     tw, th = templ_wh
     # cv::rectangle fills the inclusive range [x0, x0 + sw - 1]; the int
     # casts truncate toward zero like C.
@@ -48,7 +46,20 @@ def _extract_peaks(scores, k, templ_wh, max_overlap):
     sh = int(2 * th * (1 - max_overlap))
     off_x = f32(tw * (1.0 - max_overlap))
     off_y = f32(th * (1.0 - max_overlap))
+    with span("fipm.peaks"):
+        if scores.is_cuda:
+            return peaks_kernel.extract_peaks_cuda(scores, k, sw, sh, off_x,
+                                                   off_y)
+        return extract_peaks_ref(scores, k, sw, sh, off_x, off_y)
 
+
+def extract_peaks_ref(scores: torch.Tensor, k: int, sw: int, sh: int,
+                      off_x: float, off_y: float
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain version: k rounds of a batched argmax and a masked fill of
+    the sw x sh rectangle at (trunc(x - off_x), trunc(y - off_y)), in f32.
+    What the kernel must compute; the path of CPU tensors."""
+    A, Hs, Ws = scores.shape
     dev = scores.device
     xs = torch.arange(Ws, dtype=torch.int32, device=dev)[None, None, :]
     ys = torch.arange(Hs, dtype=torch.int32, device=dev)[None, :, None]

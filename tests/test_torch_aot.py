@@ -39,7 +39,7 @@ from fastest_image_pattern_matching_tpu_torch.models import orb as torb
 from fastest_image_pattern_matching_tpu_torch.models import (
     template_matcher as ttm)
 from fastest_image_pattern_matching_tpu_torch.ops.cuda import (
-    build, corr_kernel, warp_kernel)
+    build, corr_kernel, peaks_kernel, warp_kernel)
 from fastest_image_pattern_matching_tpu_torch.types import (
     LearnedPattern as TPattern)
 from fastest_image_pattern_matching_tpu_torch.utils.imageio import save_gray
@@ -409,7 +409,7 @@ def build_dir(tmp_path, monkeypatch):
     monkeypatch.setattr(native, "BUILD_DIR", str(tmp_path))
     loaded = []
     for mod, name in ((warp_kernel, "_lib"), (corr_kernel, "_lib"),
-                      (native, "get_lib")):
+                      (peaks_kernel, "_lib"), (native, "get_lib")):
         monkeypatch.setattr(mod, name, lambda m=mod: loaded.append(m))
     monkeypatch.setattr(torch.cuda, "get_device_capability",
                         lambda dev=None: (9, 0))
@@ -430,6 +430,7 @@ def _bundle(tmp_path, ids, payload=b"stand-in library"):
 def _cuda_ids():
     return {"warp_affine": build.library_identity(warp_kernel.SOURCE),
             "ccorr_valid": build.library_identity(corr_kernel.SOURCE),
+            "peaks": build.library_identity(peaks_kernel.SOURCE),
             "fipm_native": native.library_identity()}
 
 
@@ -438,8 +439,9 @@ def test_bundle_with_this_packages_identity_is_installed(build_dir):
     data, path = _bundle(tmp, _cuda_ids())
     rejects, runs = taot.BUNDLE_REJECTS, build.NVCC_RUNS
     installed = taot._install_bundle(data, path, torch.device("cuda"))
-    assert sorted(installed) == ["ccorr_valid", "fipm_native", "warp_affine"]
-    for src in (warp_kernel.SOURCE, corr_kernel.SOURCE):
+    assert sorted(installed) == ["ccorr_valid", "fipm_native", "peaks",
+                                 "warp_affine"]
+    for src in (warp_kernel.SOURCE, corr_kernel.SOURCE, peaks_kernel.SOURCE):
         stem = src.rsplit(".", 1)[0]
         with open(build._library_path(src), "rb") as f:
             assert f.read() == b"stand-in library" + stem.encode()
@@ -449,8 +451,9 @@ def test_bundle_with_this_packages_identity_is_installed(build_dir):
         [tmp / "bundle.npz", tmp / build._library_path(
             warp_kernel.SOURCE).rsplit("/", 1)[1],
          tmp / build._library_path(corr_kernel.SOURCE).rsplit("/", 1)[1],
+         tmp / build._library_path(peaks_kernel.SOURCE).rsplit("/", 1)[1],
          tmp / native.library_path().rsplit("/", 1)[1]])
-    assert len(loaded) == 3
+    assert len(loaded) == 4
     assert (taot.BUNDLE_REJECTS, build.NVCC_RUNS) == (rejects, runs)
     # An installed file is left as it is.
     data2, path2 = _bundle(tmp, {"warp_affine": _cuda_ids()["warp_affine"]},
