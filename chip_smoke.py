@@ -51,8 +51,6 @@ Phases, each of which fails the run (non-zero exit) when it fails:
  11. Test7 as a batch of two frames (seeds 7 and 8, one washer): 100 of
      100 in each, one correlation launch for both, every block int8; each
      frame equal to its match(); wall, the peak kernel's share, profiler.
- 12. the flagship with two_phase=True equal to one phase (split layer,
-     alive count after phase A, bucket, wall).
  13. an OCR plate (36 glyphs of a 5x7 dot-matrix font, tools/ocr_bench.py's
      scene and configuration) read as "M12X05" by MultiTemplateMatcher,
      batched and glyph by glyph, with equal matches; both times.
@@ -1327,9 +1325,9 @@ def warp_launch_only(warp_kernel, src, maps, hw, border, quantize, idx):
 
 
 def batch_phases(fipm, warp_kernel, corr_kernel, dev, smi, single, many):
-    """Phases 10-14: the flagship as a batch of four frames, Test7 as a
-    batch of two, the two-phase dispatch, the OCR plate and the corpus
-    stream, each through the user entry points on the card. Returns the
+    """Phases 10, 11, 13 and 14: the flagship as a batch of four frames,
+    Test7 as a batch of two, the OCR plate and the corpus stream, each
+    through the user entry points on the card. Returns the
     warp kernel's batched numbers for its entry of the kernels line."""
     import torch
     from fastest_image_pattern_matching_tpu_torch.models import (
@@ -1414,39 +1412,8 @@ def batch_phases(fipm, warp_kernel, corr_kernel, dev, smi, single, many):
     stage_ms = stage_times(fipm, frames, pattern, cfg, dev)
     log("[10 flagship batch] stages ms per batch: " + ", ".join(
         f"{k} {v:.3f}" for k, v in stage_ms.items()) + f" ({smi})")
-    scene0 = frames[0]
     del frames, calls, l0
     torch.cuda.empty_cache()
-
-    # Phase 12: two-phase against one phase on the flagship.
-    cfg2 = dataclasses.replace(cfg, two_phase=True)
-    one = tm.match_arrays(scene0, pattern, cfg, device=dev)
-    k0 = kernel_launches()
-    two = tm.match_arrays(scene0, pattern, cfg2, device=dev)
-    torch.cuda.synchronize()
-    launches2 = kernel_launches(k0)[0]
-    if launches2 <= 0:
-        raise AssertionError("[12 two-phase] no warp kernel launch")
-    d = same_results("[12 two-phase]", two, one, 1e-6, 1e-6)
-    plan, stats, args = tm._prepare(scene0, pattern, cfg2, dev)
-    st = tm.build_stages(plan, stats, dev)
-    if st.split is None:
-        raise AssertionError("[12 two-phase] the plan has no split layer")
-    state, _ = st.phase_a(*args)
-    n_alive = int(state[3].sum())
-    log(f"[12 two-phase] split layer {st.split} "
-        f"(template {plan.templ_shapes[st.split]}), n_alive after phase A "
-        f"{n_alive} of {state[3].shape[0]}, bucket "
-        f"{tm._bucket(n_alive, state[3].shape[0])}, warp kernel launches "
-        f"{launches2}; equal to one phase "
-        f"(valid masks; score, centre, angle 1e-6): max |d| {d}")
-    if int(one["valid"].sum()) != 3:
-        raise AssertionError("two-phase scene lost its targets")
-    wall2 = log_walls("[12 two-phase]", lambda: fipm.match(
-        scene0, pattern, cfg2, device=dev), smi)
-    log(f"[12 two-phase] wall {wall2:.2f} ms against {single['wall']:.2f} ms "
-        f"one phase (phase 4) ({smi})")
-    del scene0
 
     # Phase 11: Test7 as a batch of two frames.
     s7, t7, truth7 = many_target_scene(3648, 100)

@@ -53,7 +53,6 @@ import torch
 
 from . import native
 from .config import MatchConfig
-from .models import batch as _batch
 from .models import orb as _orb
 from .models import template_matcher as _tm
 from .ops.cuda import build as _build
@@ -79,6 +78,8 @@ def _cfg_to_json(cfg: MatchConfig) -> str:
 
 def _cfg_from_json(s: str) -> MatchConfig:
     d = json.loads(s)
+    # Packs written before MatchConfig lost its two-phase option.
+    d.pop("two_phase", None)
     if d.get("tolerance_ranges") is not None:
         d["tolerance_ranges"] = tuple(d["tolerance_ranges"])
     return MatchConfig(**d)
@@ -339,58 +340,33 @@ class AotMatcher:
         return sorted(int(k.split("_")[1]) for k in self._plans
                       if k.startswith("batch_"))
 
-    def _frames(self, src, batched: bool) -> torch.Tensor:
-        """Input checks of the JAX loader (trailing channel axis greyed,
-        the u8-value contract on host input), then the frames [N, H, W]
-        on the device in one copy."""
-        if not torch.is_tensor(src):
-            src = np.asarray(src)
-        if src.ndim == 3 + batched:
-            src = ensure_gray(src)
-        _tm._check_u8(src)
-        if batched:
-            if src.ndim != 3 or tuple(src.shape[1:]) != self.src_shape:
-                raise ValueError(
-                    f"srcs must be [B, {self.src_shape[0]}, "
-                    f"{self.src_shape[1]}], got {tuple(src.shape)}")
-            return _tm.upload_frames(src, self.device)
-        if tuple(src.shape) != self.src_shape:
-            raise ValueError(f"pack serves frames of shape {self.src_shape},"
-                             f" got {tuple(src.shape)}")
-        return _tm.upload_frames(src[None], self.device)
-
-    def _run(self, frames: torch.Tensor) -> List[Dict[str, np.ndarray]]:
-        """The frames through the loaded stages; a frame over the NMS cap
-        runs again alone with the cap lifted (template_matcher.py::
-        match_arrays)."""
-        plan, args = self._plans["single"], self._args
-        outs = [_tm._unpack_result(p) for p in _tm._dispatch(
-            self._stages, (frames,) + args, self.config)]
-        for i, o in enumerate(outs):
-            if o.pop("nms_overflow") and plan.nms_cap < plan.c_max:
-                outs[i] = _tm._unpack_result(_tm._dispatch(
-                    self._stages, (frames[i:i + 1],) + args, self.config,
-                    plan.c_max)[0])
-                outs[i].pop("nms_overflow")
-        return outs
+    def _run(self, frames) -> List[Dict[str, np.ndarray]]:
+        """Frames [N, H, W] from the input step through the loaded stages
+        (template_matcher.py::_run), uploaded in one copy."""
+        return _tm._run(self._plans["single"], self._stages,
+                        (_tm.upload_frames(frames, self.device),)
+                        + self._args)
 
     def match_arrays(self, src) -> Dict[str, np.ndarray]:
-        return self._run(self._frames(src, False))[0]
+        frames = _tm._frames(src, one=True)
+        if tuple(frames.shape[1:]) != self.src_shape:
+            raise ValueError(f"pack serves frames of shape {self.src_shape},"
+                             f" got {tuple(frames.shape[1:])}")
+        return self._run(frames)[0]
 
     def match(self, src) -> List[MatchResult]:
-        out = self.match_arrays(src)
-        wrapped = {k: v[None] for k, v in out.items()}
-        return _batch._results_from_arrays(wrapped, 0, self.pattern)
+        return _tm._results(self.match_arrays(src), self.pattern)
 
     def match_many(self, srcs) -> List[List[MatchResult]]:
         """B frames through the smallest exported bucket >= B; the padded
         frames of the bucket are not computed."""
-        frames = self._frames(srcs, True)
+        frames = _tm._frames(srcs)
+        if tuple(frames.shape[1:]) != self.src_shape:
+            raise ValueError(
+                f"srcs must be [B, {self.src_shape[0]}, "
+                f"{self.src_shape[1]}], got {tuple(frames.shape)}")
         _bucket_for(self.batch_sizes, frames.shape[0])
-        outs = self._run(frames)
-        return [_batch._results_from_arrays(
-            {k: v[None] for k, v in o.items()}, 0, self.pattern)
-            for o in outs]
+        return [_tm._results(o, self.pattern) for o in self._run(frames)]
 
 
 # ---------------------------------------------------------------------------

@@ -68,15 +68,6 @@ class MatchConfig:
     # target ranks >16th). Enable for strong-target production workloads
     # where it halves refinement cost.
     narrow_candidates: bool = False
-    # Two-phase adaptive compaction: run cheap upper pyramid layers, read
-    # the survivor count on the host, and dispatch the expensive low
-    # layers with a right-sized candidate set. Exactly equivalent results
-    # (only already-dead candidates are dropped). Superseded by the
-    # on-device alive-compaction inside the single compiled program
-    # (descend sorts alive-first and lax.cond-skips all-dead chunks),
-    # which achieves the same adaptive cost with one fewer host
-    # round-trip per match — so OFF by default; kept for A/B testing.
-    two_phase: bool = False
 
     def __post_init__(self):
         if not (1 <= self.max_pos <= 200):

@@ -36,10 +36,10 @@ from ..ops.pyramid import build_pyramid
 from ..types import LearnedPattern, MatchResult
 from ..utils.device import resolve_device
 from ..utils.profiling import span
-from .template_matcher import (_check_u8, _dispatch, _pack_result,
-                               _pattern_inputs, _plan_inputs, _prep_src,
-                               _results, _unpack_result, build_stages,
-                               match_arrays, upload_frames)
+from .template_matcher import (_check_area, _finalized, _frames,
+                               _match_frames, _pack_result, _pattern_inputs,
+                               _plan_inputs, _prep_src, _results, _stacked,
+                               build_stages, upload_frames)
 
 
 def _next_bucket(n: int) -> int:
@@ -48,30 +48,6 @@ def _next_bucket(n: int) -> int:
     while b < n:
         b *= 2
     return b
-
-
-def _prepare_batch(srcs, pattern: LearnedPattern, cfg: MatchConfig,
-                   batch_bucket: Optional[int], dev):
-    """Checks, plan and device inputs of a batch [B, H, W]: host frames go
-    up in one copy, a tensor on the device is taken without one."""
-    if not torch.is_tensor(srcs):
-        srcs = np.asarray(srcs)
-    if srcs.ndim == 4:
-        from ..utils.imageio import ensure_gray
-        srcs = ensure_gray(srcs)
-    if srcs.ndim != 3:
-        raise ValueError(f"srcs must be [B, H, W], got shape "
-                         f"{tuple(srcs.shape)}")
-    B = srcs.shape[0]
-    _check_u8(srcs)
-    t0 = pattern.levels[0].templ
-    if t0.shape[0] * t0.shape[1] > srcs.shape[1] * srcs.shape[2]:
-        raise ValueError("template larger than source")
-    bucket = batch_bucket or _next_bucket(B)
-    if bucket < B:
-        raise ValueError(f"batch_bucket {bucket} < batch {B}")
-    plan, stats, args = _plan_inputs(srcs.shape[1:], pattern, cfg, dev)
-    return plan, stats, (upload_frames(srcs, dev),) + args
 
 
 def match_many_arrays(
@@ -90,27 +66,23 @@ def match_many_arrays(
     (it may not be below B), since padded frames are not computed.
     """
     with span("fipm.match_many"):
-        return _match_many_arrays(srcs, pattern, cfg or MatchConfig(),
-                                  batch_bucket, device)
+        return _stacked(_match_many(srcs, pattern, cfg or MatchConfig(),
+                                    batch_bucket, device))
 
 
-def _match_many_arrays(srcs, pattern: LearnedPattern, cfg: MatchConfig,
-                       batch_bucket: Optional[int], device
-                       ) -> Dict[str, np.ndarray]:
-    dev = resolve_device(device)
-    with span("fipm.prepare"):
-        plan, stats, args = _prepare_batch(srcs, pattern, cfg, batch_bucket,
-                                           dev)
-        st = build_stages(plan, stats, dev)
-    outs = [_unpack_result(p) for p in _dispatch(st, args, cfg)]
-    # Frames over the NMS cap (rare) run again alone with the cap lifted.
-    for i, o in enumerate(outs):
-        if o.pop("nms_overflow") and plan.nms_cap < plan.c_max:
-            one = (args[0][i:i + 1],) + args[1:]
-            outs[i] = _unpack_result(_dispatch(st, one, cfg, plan.c_max)[0])
-            outs[i].pop("nms_overflow")
-    return {k: np.stack([o[k] for o in outs])
-            for k in ("score", "angle", "center", "corners", "valid")}
+def _match_many(srcs, pattern: LearnedPattern, cfg: MatchConfig,
+                batch_bucket: Optional[int], device
+                ) -> List[Dict[str, np.ndarray]]:
+    """The frames [B, H, W] through the input step and the batch's guards
+    (the template's area, the bucket), then the batch path; each frame's
+    result arrays."""
+    frames = _frames(srcs)
+    B = frames.shape[0]
+    _check_area(pattern, frames.shape[1:])
+    bucket = batch_bucket or _next_bucket(B)
+    if bucket < B:
+        raise ValueError(f"batch_bucket {bucket} < batch {B}")
+    return _match_frames(frames, pattern, cfg, device)
 
 
 def _results_from_arrays(out: Dict[str, np.ndarray], i: int,
@@ -126,10 +98,9 @@ def match_many(srcs, pattern: LearnedPattern,
     (see match_many_arrays)."""
     cfg = cfg or MatchConfig()
     with span("fipm.match_many"):
-        out = _match_many_arrays(srcs, pattern, cfg, batch_bucket, device)
+        outs = _match_many(srcs, pattern, cfg, batch_bucket, device)
         with span("fipm.results"):
-            return [_results_from_arrays(out, i, pattern)
-                    for i in range(out["valid"].shape[0])]
+            return [_results(o, pattern) for o in outs]
 
 
 class BatchMatcher:
@@ -179,47 +150,35 @@ def _pattern_groups(patterns: Sequence[LearnedPattern]
 
 def _source_pyramid(src, patterns: Sequence[LearnedPattern],
                     cfg: MatchConfig, dev):
-    """One host source [H, W] as a u8-checked array and its pyramid on
-    `dev`, deep enough for every pattern."""
-    if not torch.is_tensor(src):
-        src = np.asarray(src)
-    if src.ndim == 3:
-        from ..utils.imageio import ensure_gray
-        src = ensure_gray(src)
-    _check_u8(src)
-    frames = upload_frames(src[None], dev)
-    return src, build_pyramid(_prep_src(frames, cfg),
-                              max(p.top_layer for p in patterns))
+    """One source [H, W] through the input step; its (H, W) and its
+    pyramid on `dev`, deep enough for every pattern."""
+    frames = _frames(src, one=True)
+    return frames.shape[1:], build_pyramid(
+        _prep_src(upload_frames(frames, dev), cfg),
+        max(p.top_layer for p in patterns))
 
 
 def _match_group(pyr, src_hw, group: Sequence[LearnedPattern],
                  cfg: MatchConfig, dev):
     """Patterns of one plan against the source pyramid, the sweep canvases
-    computed once for all. Returns the plan and the packed results
-    [G, max_pos + 1, 13] on `dev`."""
+    computed once for all, up to their descended candidates. Returns the
+    plan and the group's finalize for _finalized: nms_cap -> the packed
+    results [G, max_pos + 1, 13] on `dev`."""
     plan, _, (_, *sweep) = _plan_inputs(src_hw, group[0], cfg, dev)
     canvases = None
-    packed = []
+    runs = []
     for p in group:
         stats, templs = _pattern_inputs(p, dev)
         st = build_stages(plan, stats, dev)
         if canvases is None:
             canvases = st.sweep_canvases(pyr[plan.top], sweep[0])
-        out = st.match_from_pyr(pyr[:plan.top + 1], templs, *sweep,
-                                canvases=canvases)
-        packed.append(_pack_result(out, cfg.max_pos))
-    return plan, torch.cat(packed)
+        runs.append((st, st.candidates(pyr[:plan.top + 1], templs, *sweep,
+                                       canvases=canvases)))
 
-
-def _unpack_group(packed: np.ndarray, plan, src, patterns, idxs, cfg,
-                  dev, results) -> None:
-    """Results of the patterns idxs from their packed rows; a pattern over
-    the NMS cap runs again alone, uncapped."""
-    for k, i in enumerate(idxs):
-        out = _unpack_result(packed[k])
-        if out.pop("nms_overflow") and plan.nms_cap < plan.c_max:
-            out = match_arrays(src, patterns[i], cfg, device=dev)
-        results[i] = out
+    def finalize(nms_cap):
+        return torch.cat([_pack_result(st.finalize(*cands, 1, nms_cap),
+                                       cfg.max_pos) for st, cands in runs])
+    return plan, finalize
 
 
 def match_patterns(src, patterns: Sequence[LearnedPattern],
@@ -231,8 +190,10 @@ def match_patterns(src, patterns: Sequence[LearnedPattern],
 
     The source pyramid is built once per call. Patterns are grouped by
     (pyramid shapes, flat-template flags, border color), which fix the
-    plan; a group computes its sweep canvases once, and each pattern runs
-    the rest of the pipeline on them. The JAX package warns when the
+    plan; a group computes its sweep canvases once, each pattern runs
+    the rest of the pipeline on them, and the group's results come back
+    in one host copy under the NMS-cap rule of template_matcher.py::
+    _finalized. The JAX package warns when the
     patterns fall into many groups, because each group costs it one
     compile; eager PyTorch compiles nothing, and a group costs only its
     own sweep warp, so the port does not warn.
@@ -242,11 +203,11 @@ def match_patterns(src, patterns: Sequence[LearnedPattern],
     groups = _pattern_groups(patterns)
     if not groups:
         return []
-    src, pyr = _source_pyramid(src, patterns, cfg, dev)
+    src_hw, pyr = _source_pyramid(src, patterns, cfg, dev)
     results: List[Optional[Dict[str, np.ndarray]]] = [None] * len(patterns)
     for idxs in groups.values():
-        plan, packed = _match_group(pyr, src.shape,
-                                    [patterns[i] for i in idxs], cfg, dev)
-        _unpack_group(packed.cpu().numpy(), plan, src, patterns, idxs, cfg,
-                      dev, results)
+        plan, finalize = _match_group(pyr, src_hw,
+                                      [patterns[i] for i in idxs], cfg, dev)
+        for i, out in zip(idxs, _finalized(plan, finalize)):
+            results[i] = out
     return results

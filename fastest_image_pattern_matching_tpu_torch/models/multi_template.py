@@ -28,7 +28,7 @@ from ..config import MatchConfig
 from ..ops.nms import filter_overlaps
 from ..types import LearnedPattern, MatchResult
 from ..utils.device import resolve_device
-from .template_matcher import learn_pattern, match
+from .template_matcher import _results, learn_pattern, match
 
 
 @dataclasses.dataclass
@@ -82,12 +82,11 @@ class MultiTemplateMatcher:
             pats.append(pat)
         out: List[LabeledMatch] = []
         if batched and pats:
-            from .batch import _results_from_arrays, match_patterns
+            from .batch import match_patterns
             arrs = match_patterns(src, pats, self.config, device=self.device)
             for label, pat, arr in zip(labels, pats, arrs):
-                batched_out = {k: v[None] for k, v in arr.items()}
-                out.extend(LabeledMatch(label, r) for r in
-                           _results_from_arrays(batched_out, 0, pat))
+                out.extend(LabeledMatch(label, r)
+                           for r in _results(arr, pat))
         else:
             for label, pat in zip(labels, pats):
                 try:

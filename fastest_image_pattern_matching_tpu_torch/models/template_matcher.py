@@ -245,7 +245,7 @@ def _make_plan(src_hw, pattern: LearnedPattern, cfg: MatchConfig) -> _Plan:
     k_peaks = cfg.max_pos + MATCH_CANDIDATE_NUM
     c_max = min(cfg.effective_max_candidates, len(angles) * k_peaks)
     # NMS column cap: exact whenever the above-threshold candidates fit;
-    # finalize flags an overflow and match_arrays re-dispatches uncapped.
+    # finalize flags an overflow and _finalized finalizes again uncapped.
     nms_cap = min(c_max, max(4 * cfg.max_pos + 64, 128))
     single_angle = (cfg.tolerance_ranges is None
                     and cfg.tolerance_angle < VISION_TOLERANCE)
@@ -291,6 +291,22 @@ def _by_frame(fidx: torch.Tensor, n_frames: int) -> torch.Tensor:
     return torch.sort(fidx, stable=True).indices.reshape(n_frames, -1)
 
 
+def narrow_bound(max_pos: int) -> int:
+    """How many candidates a frame keeps under cfg.narrow_candidates."""
+    return max(2 * max_pos + 4, 16)
+
+
+def narrowed(cands, n_frames: int, cl: int) -> torch.Tensor:
+    """Indices [N * cl] into the flat candidates (ptLT, ang, score, alive,
+    fidx) of each frame's top cl, dead ones last, ties broken by (score
+    desc, y, x, angle): the finalize order."""
+    grp = _by_frame(cands[4], n_frames)
+    p, a, s, al = (x[grp] for x in cands[:4])
+    key = torch.where(al, s, -2.0)
+    o = _lexsort((a, p[..., 0], p[..., 1], -key))[:, :cl]
+    return _rows(grp, o).reshape(-1)
+
+
 def _prep_src(src: torch.Tensor, cfg: MatchConfig) -> torch.Tensor:
     """Input normalisation: u8-contract clip and bitwise-not. The JAX
     package clips the source to [0, 255] when its correlation runs in
@@ -312,7 +328,7 @@ def build_stages(plan: _Plan, stats, device, narrow_hook=None):
     [N, ...] results. One frame is the case N = 1.
 
     stats: per level (mean, norm, inv_area, result_equal1) as Python
-    values. Returns a namespace of the stage functions; match_fn composes
+    values. Returns a namespace of the stage functions; _run composes
     them.
 
     narrow_hook: optional fn(ptLT, ang, score, alive, fidx) -> alive, used
@@ -559,17 +575,11 @@ def build_stages(plan: _Plan, stats, device, narrow_hook=None):
                           alive.to(torch.float32)[..., None]], dim=-1)
 
     def narrow(cands, n_frames):
-        """Each frame's candidates cut to its top cl scorers, ties broken
-        by (score desc, y, x, angle), the finalize order."""
-        per_frame = cands[0].shape[0] // n_frames
-        cl = min(per_frame, max(2 * cfg.max_pos + 4, 16))
-        if cl >= per_frame:
+        """Each frame's candidates cut to its top narrow_bound scorers."""
+        cl = narrow_bound(cfg.max_pos)
+        if cl >= cands[0].shape[0] // n_frames:
             return cands
-        grp = _by_frame(cands[4], n_frames)
-        p, a, s, al = (x[grp] for x in cands[:4])
-        key = torch.where(al, s, -2.0)
-        o = _lexsort((a, p[..., 0], p[..., 1], -key))[:, :cl]
-        sel = _rows(grp, o).reshape(-1)
+        sel = narrowed(cands, n_frames, cl)
         return tuple(x[sel] for x in cands)
 
     def descend_level(l, pyr, templs, cands, n_frames):
@@ -670,66 +680,24 @@ def build_stages(plan: _Plan, stats, device, narrow_hook=None):
     def prep_src(src):
         return _prep_src(src, cfg)
 
-    def match_from_pyr(pyr, templs, inv_mats, trans, valid_wh, angles_arr,
-                       nms_cap=None, canvases=None):
-        """Full match given an already-built source pyramid (the shared
-        core of match_fn and of models/batch.py::match_patterns, which
-        builds the pyramid and the sweep canvases once for many
-        templates)."""
+    def candidates(pyr, templs, inv_mats, trans, valid_wh, angles_arr,
+                   canvases=None):
+        """Sweep, selection and descent on a built source pyramid: the
+        flat candidates of every frame that finalize takes. canvases:
+        sweep_canvases' chunks, when computed already (models/batch.py::
+        match_patterns shares them among the templates of one plan)."""
         vals, locs = sweep_maps(pyr[top], templs[top], inv_mats, valid_wh,
                                 canvases)
         pt, ang, score, alive = select_candidates(vals, locs, trans,
                                                   angles_arr)
-        return finalize(*descend(pyr, templs, pt, ang, score, alive),
-                        pyr[0].shape[0], nms_cap)
-
-    def match_fn(src, templs, inv_mats, trans, valid_wh, angles_arr,
-                 nms_cap=None):
-        with span("fipm.pyramid"):
-            pyr = build_pyramid(prep_src(src), top)
-        return match_from_pyr(pyr, templs, inv_mats, trans, valid_wh,
-                              angles_arr, nms_cap)
-
-    # Split layer for two-phase adaptive compaction: the first (highest)
-    # layer whose template is large enough that per-candidate cost
-    # dominates. None = no split (small templates, or nothing cheap to run
-    # first).
-    split = None
-    for l in range(top - 1, stop - 1, -1):
-        if plan.templ_shapes[l][0] * plan.templ_shapes[l][1] > 4096:
-            split = l
-            break
-    if split is not None and split == top - 1:
-        split = None
-
-    def phase_a(src, templs, inv_mats, trans, valid_wh, angles_arr):
-        """Pyramid, sweep and the cheap upper descent down to split + 1;
-        returns the flat candidate state and the pyramid."""
-        with span("fipm.pyramid"):
-            pyr = build_pyramid(prep_src(src), top)
-        vals, locs = sweep_maps(pyr[top], templs[top], inv_mats, valid_wh)
-        pt, ang, score, alive = select_candidates(vals, locs, trans,
-                                                  angles_arr)
-        ptLT, ang, fidx = unrotate(pt, ang)
-        state = descend_range(pyr, templs, ptLT, ang, score.reshape(-1),
-                              alive.reshape(-1), fidx, top - 1, split + 1)
-        return state, pyr
-
-    def phase_b(state, pyr, templs, nms_cap=None):
-        """The expensive low-layer descent on a compacted candidate set of
-        one frame, then finalize."""
-        ptLT, ang, score, alive, fidx = descend_range(
-            pyr, templs, *state, split, stop)
-        scale = 1.0 if stop == 0 else 2.0
-        return finalize(ptLT * scale, ang, score, alive, fidx, 1, nms_cap)
+        return descend(pyr, templs, pt, ang, score, alive)
 
     return types.SimpleNamespace(
         sweep_canvases=sweep_canvases, sweep_maps=sweep_maps,
         select_candidates=select_candidates, descend_range=descend_range,
         unrotate=unrotate, descend=descend,
         debug_candidates=debug_candidates, finalize=finalize,
-        prep_src=prep_src, match_from_pyr=match_from_pyr, match_fn=match_fn,
-        split=split, phase_a=phase_a, phase_b=phase_b)
+        prep_src=prep_src, candidates=candidates)
 
 
 class TemplateMatcher:
@@ -821,28 +789,40 @@ def _plan_inputs(src_hw, pattern: LearnedPattern, cfg: MatchConfig, dev):
     return plan, stats, (templs,) + arrays
 
 
+def _check_area(pattern: LearnedPattern, src_hw) -> None:
+    """The template's area against the frame's: the guard of match_many
+    (and of the JAX package's batch), a part of _check_sizes."""
+    t0 = pattern.levels[0].templ
+    if t0.shape[0] * t0.shape[1] > src_hw[0] * src_hw[1]:
+        raise ValueError("template larger than source")
+
+
 def _check_sizes(pattern: LearnedPattern, src_hw) -> None:
     """Guards per Match() (MatchToolDlg.cpp:774-781)."""
     t0 = pattern.levels[0].templ
     if (t0.shape[0] > src_hw[0] and t0.shape[1] < src_hw[1]) or \
        (t0.shape[0] < src_hw[0] and t0.shape[1] > src_hw[1]):
         raise ValueError("template/source size relation unsupported")
-    if t0.shape[0] * t0.shape[1] > src_hw[0] * src_hw[1]:
-        raise ValueError("template larger than source")
+    _check_area(pattern, src_hw)
 
 
-def _prepare(src, pattern: LearnedPattern, cfg: MatchConfig, dev):
-    """Input checks, plan, stats and device tensors of one image; the
-    source goes up as a stack of one frame."""
-    if not torch.is_tensor(src):
-        src = np.asarray(src)
-    if src.ndim == 3:
+def _frames(srcs, one: bool = False):
+    """The input step of every entry: a caller's frames [N, H, W] (numpy
+    or a tensor; one=True: a single image [H, W]) as frames [N, H, W], a
+    trailing colour axis turned grey, the u8-value contract checked. Each
+    entry then guards the sizes it serves."""
+    if not torch.is_tensor(srcs):
+        srcs = np.asarray(srcs)
+    if one:
+        srcs = srcs[None]
+    if srcs.ndim == 4:
         from ..utils.imageio import ensure_gray
-        src = ensure_gray(src)
-    _check_u8(src)
-    _check_sizes(pattern, src.shape)
-    plan, stats, args = _plan_inputs(src.shape, pattern, cfg, dev)
-    return plan, stats, (upload_frames(src[None], dev),) + args
+        srcs = ensure_gray(srcs)
+    if srcs.ndim != 3:
+        raise ValueError(f"srcs must be [B, H, W], got shape "
+                         f"{tuple(srcs.shape)}")
+    _check_u8(srcs)
+    return srcs
 
 
 def _pack_result(out, max_pos: int) -> torch.Tensor:
@@ -860,9 +840,10 @@ def _pack_result(out, max_pos: int) -> torch.Tensor:
 
 def _unpack_result(packed: np.ndarray) -> Dict[str, np.ndarray]:
     """One frame's [max_pos + 1, 13] rows of _pack_result -> result
-    arrays and the nms_overflow flag."""
-    flag = packed[-1, 0] > 0.5
-    packed = packed[:-1]
+    arrays. A row that holds no match reads score -1 and zeros (the
+    JAX package's empty result), whatever candidate finalize left in it."""
+    packed = packed[:-1].copy()
+    packed[packed[:, 12] <= 0.5, 1:12] = 0.0
     mp = packed.shape[0]
     return {
         "score": packed[:, 0].astype(np.float32),
@@ -870,46 +851,58 @@ def _unpack_result(packed: np.ndarray) -> Dict[str, np.ndarray]:
         "center": packed[:, 2:4].astype(np.float32),
         "corners": packed[:, 4:12].reshape(mp, 4, 2).astype(np.float32),
         "valid": packed[:, 12] > 0.5,
-        "nms_overflow": bool(flag),
     }
 
 
-def _bucket(n: int, cap: int) -> int:
-    """Power-of-two candidate bucket (>= 4) for phase B, at most cap."""
-    b = 4
-    while b < n:
-        b *= 2
-    return min(b, cap)
+def _stacked(outs: List[Dict[str, np.ndarray]]) -> Dict[str, np.ndarray]:
+    """Per-frame result arrays stacked along a leading frame axis."""
+    return {k: np.stack([o[k] for o in outs])
+            for k in ("score", "angle", "center", "corners", "valid")}
 
 
-def _dispatch(st, args, cfg: MatchConfig, nms_cap=None) -> np.ndarray:
-    """Run the stages on the frames args[0] [N, H, W]; returns the packed
-    results [N, max_pos + 1, 13] as numpy, in one host copy.
-
-    One frame with cfg.two_phase, when the plan has a split layer, runs in
-    two phases: the cheap upper layers, one host read of the alive count,
-    then the expensive lower layers on the alive candidates only (score
-    order, cut to a power-of-two bucket). Only candidates that are dead
-    already are dropped, so the result equals the one-phase run. A batch
-    of frames runs in one phase, as the JAX package's batch does."""
-    mp = cfg.max_pos
-    if cfg.two_phase and st.split is not None and args[0].shape[0] == 1:
-        state, pyr = st.phase_a(*args)
-        with span("fipm.descent"):
-            alive = state[3]
-            n_alive = int(alive.sum())
-            if n_alive == 0:
-                empty = np.zeros((1, mp + 1, 13), np.float32)
-                empty[0, :mp, 0] = -1.0
-                return empty
-            key = torch.where(alive, state[2], -2.0)
-            order = _sort_desc(key)[:_bucket(n_alive, alive.shape[0])]
-            state = tuple(x[order] for x in state)
-        out = st.phase_b(state, pyr, args[1], nms_cap)
-    else:
-        out = st.match_fn(*args, nms_cap=nms_cap)
+def _finalized(plan: _Plan, finalize) -> List[Dict[str, np.ndarray]]:
+    """The NMS-cap rule of every entry. finalize(nms_cap) gives the packed
+    results (_pack_result) of every frame of a call, or every pattern of a
+    group, finalized under that cap (None: the plan's); they come back in
+    one host copy. When a frame holds more above-threshold candidates than
+    the cap (its overflow flag), all are finalized again with the cap
+    lifted, on the candidates the descent gave already: finalize is the
+    only stage the cap changes, so that is the exact uncapped greedy
+    result. Returns each frame's result arrays."""
+    packed = finalize(None)
     with span("fipm.readback"):
-        return _pack_result(out, mp).cpu().numpy()
+        packed = packed.cpu().numpy()
+    if plan.nms_cap < plan.c_max and bool((packed[:, -1, 0] > 0.5).any()):
+        packed = finalize(plan.c_max)
+        with span("fipm.readback"):
+            packed = packed.cpu().numpy()
+    return [_unpack_result(p) for p in packed]
+
+
+def _run(plan: _Plan, st, args) -> List[Dict[str, np.ndarray]]:
+    """The stages on the frames args[0] [N, H, W] on the device (args:
+    those frames, the template pyramid and the sweep arrays): pyramid,
+    sweep, selection, descent, then finalize under _finalized's rule.
+    Returns each frame's result arrays."""
+    frames, templs, *sweep = args
+    with span("fipm.pyramid"):
+        pyr = build_pyramid(st.prep_src(frames), plan.top)
+    cands = st.candidates(pyr, templs, *sweep)
+    return _finalized(plan, lambda cap: _pack_result(
+        st.finalize(*cands, frames.shape[0], cap), plan.cfg.max_pos))
+
+
+def _match_frames(frames, pattern: LearnedPattern, cfg: MatchConfig,
+                  device) -> List[Dict[str, np.ndarray]]:
+    """The path of match and match_many: frames [N, H, W] from _frames,
+    their sizes guarded by their entry, get a plan, stage functions and
+    one upload (fipm.prepare), then _run. One frame is the case N = 1."""
+    dev = resolve_device(device)
+    with span("fipm.prepare"):
+        plan, stats, args = _plan_inputs(frames.shape[1:], pattern, cfg, dev)
+        st = build_stages(plan, stats, dev)
+        args = (upload_frames(frames, dev),) + args
+    return _run(plan, st, args)
 
 
 def match_candidates(src, pattern: LearnedPattern,
@@ -923,8 +916,11 @@ def match_candidates(src, pattern: LearnedPattern,
     threshold)."""
     cfg = cfg or MatchConfig()
     dev = resolve_device(device)
-    plan, stats, args = _prepare(src, pattern, cfg, dev)
-    packed = build_stages(plan, stats, dev).debug_candidates(*args)[0]
+    frames = _frames(src, one=True)
+    _check_sizes(pattern, frames.shape[1:])
+    plan, stats, args = _plan_inputs(frames.shape[1:], pattern, cfg, dev)
+    packed = build_stages(plan, stats, dev).debug_candidates(
+        upload_frames(frames, dev), *args)[0]
     packed = packed.cpu().numpy()
     return {"x": packed[:, 0], "y": packed[:, 1], "angle": packed[:, 2],
             "score": packed[:, 3], "alive": packed[:, 4] > 0.5}
@@ -940,17 +936,9 @@ def match_arrays(src, pattern: LearnedPattern, cfg: MatchConfig,
 
 
 def _match_arrays(src, pattern: LearnedPattern, cfg: MatchConfig, device):
-    dev = resolve_device(device)
-    with span("fipm.prepare"):
-        plan, stats, args = _prepare(src, pattern, cfg, dev)
-        st = build_stages(plan, stats, dev)
-    out = _unpack_result(_dispatch(st, args, cfg)[0])
-    if out.pop("nms_overflow") and plan.nms_cap < plan.c_max:
-        # More above-threshold candidates than the NMS cap: run again with
-        # the cap lifted for the exact uncapped greedy result.
-        out = _unpack_result(_dispatch(st, args, cfg, plan.c_max)[0])
-        out.pop("nms_overflow")
-    return out
+    frames = _frames(src, one=True)
+    _check_sizes(pattern, frames.shape[1:])
+    return _match_frames(frames, pattern, cfg, device)[0]
 
 
 def match(src, pattern: LearnedPattern, cfg: Optional[MatchConfig] = None,

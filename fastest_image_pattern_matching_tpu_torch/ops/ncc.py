@@ -91,7 +91,7 @@ def ccorr_shiftmm(canvases_c: torch.Tensor, templ_c: torch.Tensor
     The matmul runs in f64 and is rounded to f32 once: exact on integer
     inputs (every sum below 2^53), so a candidate's score does not depend
     on how many ROIs share the matmul, whose f32 summation order on the
-    card follows its shape (the batch of frames and the two-phase bucket
+    card follows its shape (the batch of frames and the alive chunks
     change that)."""
     B, H, W = canvases_c.shape
     h, w = templ_c.shape

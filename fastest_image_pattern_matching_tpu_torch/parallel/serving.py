@@ -88,24 +88,27 @@ def match_patterns_sharded(src, patterns: Sequence[LearnedPattern],
     """match_patterns with each group's glyph axis sharded over the data
     axis: the group padded to a multiple of it (repeating its first glyph;
     those results are dropped), each rank matching its glyphs against its
-    own source pyramid. A glyph over the NMS cap runs again alone,
-    uncapped, on every rank. Result dicts equal the unsharded path's."""
-    from ..models.batch import (_match_group, _pattern_groups,
-                                _source_pyramid, _unpack_group)
+    own source pyramid. The NMS-cap rule (template_matcher.py::
+    _finalized) is decided on the gathered flags, the same on every rank.
+    Result dicts equal the unsharded path's."""
+    from ..models.batch import _match_group, _pattern_groups, \
+        _source_pyramid
+    from ..models.template_matcher import _finalized
     cfg = cfg or MatchConfig()
     mesh = mesh or make_data_mesh()
     groups = _pattern_groups(patterns)
     if not groups:
         return []
-    src, pyr = _source_pyramid(src, patterns, cfg, mesh.device)
+    src_hw, pyr = _source_pyramid(src, patterns, cfg, mesh.device)
     results: List[Optional[Dict[str, np.ndarray]]] = [None] * len(patterns)
     for idxs in groups.values():
         per, lo = _data_block(len(idxs), mesh)
         padded = idxs + [idxs[0]] * (per * mesh.shape[0] - len(idxs))
-        plan, packed = _match_group(
-            pyr, src.shape, [patterns[i] for i in padded[lo:lo + per]], cfg,
+        plan, finalize = _match_group(
+            pyr, src_hw, [patterns[i] for i in padded[lo:lo + per]], cfg,
             mesh.device)
-        packed = mesh.all_gather(packed, DATA_AXIS).cpu().numpy()
-        _unpack_group(packed, plan, src, patterns, idxs, cfg, mesh.device,
-                      results)
+        outs = _finalized(plan, lambda cap: mesh.all_gather(
+            finalize(cap), DATA_AXIS))
+        for i, out in zip(idxs, outs):
+            results[i] = out
     return results

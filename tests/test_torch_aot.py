@@ -46,7 +46,7 @@ from fastest_image_pattern_matching_tpu_torch.utils.imageio import save_gray
 from tests.test_aot import _scene
 from tests.test_orb import _textured
 from tests.test_orb_serving import CFG as JAX_ORB_CFG
-from tests.test_torch_batch import _rotated_problem
+from tests.test_torch_batch import _rotated_problem, counted_run
 from tests.test_torch_orb import jax_draws  # noqa: F401 (a fixture)
 
 # One intra-op thread: the tier-1 run keeps every core busy (six xdist
@@ -224,8 +224,11 @@ def test_cfg_json_round_trips(port_pack, jax_pack, direction):
                             fast_mode=True, max_candidates=64)
     other = (jaot if direction == "port_to_jax" else taot)
     back = other._cfg_from_json(taot._cfg_to_json(cfg))
-    assert json.loads(jaot._cfg_to_json(back)) == json.loads(
-        taot._cfg_to_json(cfg))
+    got = json.loads(jaot._cfg_to_json(back))
+    # The JAX package's config still has the two-phase option the port's
+    # lost; it writes its default there.
+    assert got.pop("two_phase", False) is False
+    assert got == json.loads(taot._cfg_to_json(cfg))
 
 
 # ------------------------------------------------------------------ guards
@@ -258,6 +261,29 @@ def test_format_version_guard(port_pack, tmp_path):
                    format_version=np.int64(2))
     with pytest.raises(ValueError, match="unsupported pack version 2"):
         tfipm.AotMatcher.load(bad, device=CPU)
+
+
+def test_pack_with_two_phase_key_loads(scene, port_pack, tmp_path):
+    """A pack written while MatchConfig had its two-phase option carries
+    "two_phase": false in its cfg_json and in its plans' configs: it loads
+    with the port's config and matches as the port does."""
+    src, _ = scene
+    path, pat, cfg, _ = port_pack
+    data = np.load(path)
+    old = {}
+    for key in ["cfg_json"] + [k for k in data.files
+                               if k.startswith("plan_")]:
+        d = json.loads(taot._read_text(data, key))
+        (d if key == "cfg_json" else d["cfg"])["two_phase"] = False
+        old[key] = taot._text(json.dumps(d))
+    m = tfipm.AotMatcher.load(_rewrite(path, str(tmp_path / "old.npz"),
+                                       **old), device=CPU)
+    assert m.config == cfg
+    got = m.match_arrays(src)
+    want = ttm.match_arrays(src, pat, cfg, device=CPU)
+    assert want["valid"].sum() == 3
+    for k in KEYS:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
 
 
 @pytest.fixture(scope="module")
@@ -331,7 +357,8 @@ def test_cpu_pack_refused_by_a_cuda_load(port_pack, port_orb_pack, loader):
 def test_overflow_pack_equals_port(tmp_path, monkeypatch):
     """More above-threshold candidates than the NMS cap in two of three
     frames (tests/test_torch_batch.py's tol30_overflow problem): the pack
-    reruns them uncapped as match_arrays and match_many_arrays do."""
+    sweeps and descends once a call and finalizes again uncapped, as
+    match_arrays and match_many do, with the same results."""
     frames, tpl = _rotated_problem()
     cfg = tfipm.MatchConfig(max_pos=16, score=0.02, tolerance_angle=30.0,
                             max_overlap=0.7, use_subpixel=False)
@@ -340,25 +367,22 @@ def test_overflow_pack_equals_port(tmp_path, monkeypatch):
     tfipm.export_match_pack(path, pat, cfg, frames.shape[1:],
                             batch_sizes=(4,), device=CPU)
     m = tfipm.AotMatcher.load(path, device=CPU)
-    plan = m._plans["single"]
-    capped = ttm._dispatch(m._stages, (m._frames(frames, True),) + m._args,
-                           cfg)
-    assert (capped[:, -1, 0] > 0.5).tolist() == [True, True, False]
-    assert plan.nms_cap < plan.c_max
-    caps = []
-    dispatch = ttm._dispatch
-    monkeypatch.setattr(ttm, "_dispatch", lambda st, args, cfg, cap=None: (
-        caps.append((args[0].shape[0], cap)) or dispatch(st, args, cfg, cap)))
-    got = m.match_arrays(frames[0])
-    want = ttm.match_arrays(frames[0], pat, cfg, device=CPU)
+    c_max = m._plans["single"].c_max
+    assert m._plans["single"].nms_cap < c_max
+    one = [(None, [True]), (c_max, [False])]
+    got, sweeps, descents, finalizes = counted_run(
+        monkeypatch, lambda: m.match_arrays(frames[0]))
+    assert (sweeps, descents, finalizes) == (1, 1, one)
+    want, *counts = counted_run(
+        monkeypatch, lambda: ttm.match_arrays(frames[0], pat, cfg,
+                                              device=CPU))
+    assert counts == [1, 1, one]
     assert want["valid"].all()
     for k in KEYS:
         np.testing.assert_array_equal(got[k], want[k], err_msg=k)
-    # Each ran capped, overflowed and ran again uncapped.
-    assert caps == [(1, None), (1, plan.c_max)] * 2
-    caps.clear()
-    many = m.match_many(frames)
-    assert caps == [(3, None), (1, plan.c_max), (1, plan.c_max)]
+    many, *counts = counted_run(monkeypatch, lambda: m.match_many(frames))
+    assert counts == [1, 1, [(None, [True, True, False]),
+                             (c_max, [False, False, False])]]
     want = tfipm.match_many(frames, pat, cfg, device=CPU)
     assert [len(g) for g in many] == [len(w) for w in want] == [16, 16, 0]
     for gs, ws in zip(many, want):

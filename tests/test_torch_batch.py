@@ -1,7 +1,7 @@
 """The port's batched serving path against the JAX package on the CPU:
 match_many_arrays / match_many / BatchMatcher / match_patterns. The ops
-that gained a frame axis and the two-phase dispatch are in
-tests/test_torch_batch_ops.py.
+that gained a frame axis and the one-phase run against the JAX package's
+two-phase dispatch are in tests/test_torch_batch_ops.py.
 
 Tolerances are the ROADMAP's: valid masks equal, score 1e-5, centre and
 angle 1e-3 against JAX; the port's batch against its own match() to 1e-6
@@ -14,14 +14,15 @@ import cv2
 import numpy as np
 import pytest
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 import fastest_image_pattern_matching_tpu as jfipm
 from fastest_image_pattern_matching_tpu.models import batch as jbatch
 
 import fastest_image_pattern_matching_tpu_torch as tfipm
-from fastest_image_pattern_matching_tpu_torch.models import batch as tbatch
 from fastest_image_pattern_matching_tpu_torch.models import (
     template_matcher as ttm)
+from fastest_image_pattern_matching_tpu_torch.utils import profiling
 from tests.test_torch_match import _assert_same_result, _paste_rotated
 
 # One intra-op thread: the tier-1 run keeps every core busy (six xdist
@@ -118,17 +119,43 @@ def test_match_many_arrays_vs_jax(problems, name):
         assert got["valid"].sum(axis=1).tolist() == [1, 1, 0]
 
 
-def test_overflow_frames_rerun_alone(problems):
+def counted_run(monkeypatch, fn):
+    """fn() under the CPU profiler, with template_matcher._finalized's
+    finalize spied on: fn's value, the number of fipm.sweep and
+    fipm.descent spans, and each finalize's (nms_cap, overflow flags)."""
+    finalizes = []
+    real = ttm._finalized
+
+    def spied(plan, finalize):
+        def recorded(cap):
+            packed = finalize(cap)
+            finalizes.append((cap, (packed[:, -1, 0] > 0.5).tolist()))
+            return packed
+        return real(plan, recorded)
+    monkeypatch.setattr(ttm, "_finalized", spied)
+    profiling.reset_spans()
+    with profile(activities=[ProfilerActivity.CPU]):
+        out = fn()
+    names = [r.name for r in profiling.spans()]
+    profiling.reset_spans()
+    monkeypatch.setattr(ttm, "_finalized", real)
+    return (out, names.count("fipm.sweep"), names.count("fipm.descent"),
+            finalizes)
+
+
+def test_overflow_frames_rerun_alone(problems, monkeypatch):
     """The overflow case really overflows in the two noisy frames and not
-    in the blank one, and each is re-run with the cap lifted."""
+    in the blank one. The call sweeps and descends once; finalize runs
+    capped, then once more with the cap lifted on the same candidates."""
     frames, _, _, tp, cfg, _ = problems["tol30_overflow"]
-    plan, stats, args = tbatch._prepare_batch(frames, tp, cfg, None,
-                                              torch.device("cpu"))
-    st = ttm.build_stages(plan, stats, "cpu")
-    flags = ttm._dispatch(st, args, cfg)[:, -1, 0] > 0.5
-    assert flags.tolist() == [True, True, False]
+    plan = ttm._make_plan(frames.shape[1:], tp, cfg)
     assert plan.nms_cap < plan.c_max
-    got = tfipm.match_many_arrays(frames, tp, cfg, device="cpu")
+    got, sweeps, descents, finalizes = counted_run(
+        monkeypatch,
+        lambda: tfipm.match_many_arrays(frames, tp, cfg, device="cpu"))
+    assert (sweeps, descents) == (1, 1)
+    assert finalizes == [(None, [True, True, False]),
+                         (plan.c_max, [False, False, False])]
     assert got["valid"][:2].all()
 
 

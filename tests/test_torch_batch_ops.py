@@ -1,12 +1,13 @@
 """The ops that gained a frame axis for the port's batched serving path
-(the warp's source index, the stacked pyramid, the per-frame NMS) and the
-two-phase dispatch, against the port's own per-frame runs and the JAX
-package on the CPU. Split from tests/test_torch_batch.py, whose
+(the warp's source index, the stacked pyramid, the per-frame NMS), against
+the port's own per-frame runs and the JAX package on the CPU, and the
+port's one-phase run against the JAX package's two-phase dispatch. Split from tests/test_torch_batch.py, whose
 module-scoped JAX runs these tests do not use, so that the parallel test
 run can place the two files on different workers.
 
-Tolerances: the ops exactly; the two-phase dispatch against one phase to
-score 1e-6, centre and angle 1e-5 (the same arithmetic), against JAX to
+Tolerances: the ops exactly; a JAX config with two_phase=True against
+the default to score 1e-6, centre and angle 1e-5 (the same arithmetic),
+against JAX to
 the ROADMAP's valid masks equal, score 1e-5, centre and angle 1e-3.
 """
 
@@ -21,8 +22,6 @@ import fastest_image_pattern_matching_tpu as jfipm
 from fastest_image_pattern_matching_tpu.models import template_matcher as jtm
 
 import fastest_image_pattern_matching_tpu_torch as tfipm
-from fastest_image_pattern_matching_tpu_torch.models import (
-    template_matcher as ttm)
 from fastest_image_pattern_matching_tpu_torch.ops import nms as tnms
 from fastest_image_pattern_matching_tpu_torch.ops import pyramid as tpyr
 from fastest_image_pattern_matching_tpu_torch.ops import warp as twarp
@@ -111,14 +110,16 @@ def two_phase_scene():
 
 
 def test_two_phase_vs_default_and_jax(two_phase_scene):
+    """The port runs in one phase: given the JAX package's config with
+    two_phase=True (an attribute the port does not read), it equals its
+    own default and JAX's two-phase result, whose plan has a split
+    layer."""
     scene, jp, tp, cfg = two_phase_scene
     cfg2 = dataclasses.replace(cfg, two_phase=True)
-    plan, stats, args = ttm._prepare(scene, tp, cfg2, torch.device("cpu"))
-    st = ttm.build_stages(plan, stats, "cpu")
-    assert st.split is not None
-    state, _ = st.phase_a(*args)
-    n_alive = int(state[3].sum())
-    assert 0 < ttm._bucket(n_alive, state[3].shape[0]) < state[3].shape[0]
+    stats = tuple((lv.mean, lv.norm, lv.inv_area, lv.result_equal1)
+                  for lv in jp.levels)
+    assert jtm._stage_split(jtm._make_plan(scene.shape, jp, cfg2),
+                            jtm._stats_key(stats)) is not None
     two = tfipm.match_arrays(scene, tp, cfg2, device="cpu")
     one = tfipm.match_arrays(scene, tp, cfg, device="cpu")
     _same_own(two, one)
