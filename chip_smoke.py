@@ -3,13 +3,14 @@
 
     python3 chip_smoke.py          # every phase
     python3 chip_smoke.py peaks    # phases 1, 2 and 23
+    python3 chip_smoke.py descent  # phases 1, 2 and 24
 
 Phases, each of which fails the run (non-zero exit) when it fails:
   1. device: the card's name and power limit; CUDA is required.
-  2. build: compiles the three hand-written CUDA kernels (warp,
-     correlation, peaks) from the sources in this checkout (nvcc,
-     sm_90a), one nvcc each, in parallel, and the native host library
-     (g++).
+  2. build: compiles the four hand-written CUDA kernels (warp,
+     correlation, peaks, descent score) from the sources in this checkout
+     (nvcc, sm_90a), one nvcc each, in parallel, and the native host
+     library (g++).
   3. warp kernel against its plain PyTorch version on the card, at the
      shapes of the flagship's main path (L0 also with all maps at 0, 45
      and 90 deg), a map wholly outside the image and general affine maps
@@ -121,6 +122,13 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      tile-form calls per match; kernel (host loop, device alone), plain
      loop on the card and bound; both forms timed on the same maps around
      the size where the wrapper switches.
+ 24. the descent-score kernel against its plain version on the card, bit
+     for bit, on every descent chunk of one flagship match (levels 5-0),
+     one Test7 match and a flagship batch of 8, recorded from the
+     matches; launches per match equal to the chunks that ran (the
+     fipm.descent.chunk spans under the profiler); kernel (host loop,
+     device alone), plain version on the card and bound at the flagship's
+     level-0 chunk (24 ROIs) and Test7's chunk (32 ROIs).
 The last three lines of output are the kernels' JSON summary, the card's
 name and power limit, and {"ok": true, "device": {...}}. Imports nothing
 of JAX.
@@ -753,7 +761,7 @@ def main() -> int:
     import fastest_image_pattern_matching_tpu_torch as fipm
     from fastest_image_pattern_matching_tpu_torch import native
     from fastest_image_pattern_matching_tpu_torch.ops.cuda import (
-        build, corr_kernel, peaks_kernel, warp_kernel)
+        build, corr_kernel, descent_score_kernel, peaks_kernel, warp_kernel)
 
     dev = torch.device("cuda", 0)
     # Phase 1: device.
@@ -764,11 +772,12 @@ def main() -> int:
     # Phase 2: build every kernel, one nvcc each, all started together.
     t0 = time.perf_counter()
     built = build.build_all([warp_kernel.SOURCE, corr_kernel.SOURCE,
-                             peaks_kernel.SOURCE])
+                             peaks_kernel.SOURCE, descent_score_kernel.SOURCE])
     warp_kernel._lib()
     corr_kernel._lib()
     peaks_kernel._lib()
-    log(f"[2 build] the three kernels built and loaded in "
+    descent_score_kernel._lib()
+    log(f"[2 build] the four kernels built and loaded in "
         f"{time.perf_counter() - t0:.2f} s")
     for path, nvcc_s, report in built:
         log(f"[2 build] {os.path.relpath(path)} nvcc {nvcc_s:.2f} s")
@@ -785,6 +794,11 @@ def main() -> int:
                                                   smi)]}))
         print(smi)
         print(json.dumps({"ok": True, "phases": [1, 2, 23]}), flush=True)
+        return 0
+    if sys.argv[1:] == ["descent"]:
+        print(json.dumps({"kernels": [descent_phase(fipm, dev, smi)]}))
+        print(smi)
+        print(json.dumps({"ok": True, "phases": [1, 2, 24]}), flush=True)
         return 0
 
     single, warp = flagship_phases(fipm, warp_kernel, dev, smi)
@@ -803,7 +817,8 @@ def main() -> int:
     warp["decode_launches"], corr["decode_launches"] = decode_phase(
         fipm, warp_kernel, corr_kernel, dev, smi)
     peaks = peaks_phase(fipm, peaks_kernel, dev, smi)
-    print(json.dumps({"kernels": [warp, corr, peaks]}))
+    descent = descent_phase(fipm, dev, smi)
+    print(json.dumps({"kernels": [warp, corr, peaks, descent]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2439,8 +2454,9 @@ def aot_phase(fipm, warp_kernel, corr_kernel, dev, smi, warp, corr,
                                  "from phase 10's")
         flag_libs = {k[4:]: bytes(data[k]) for k in data.files
                      if k.startswith("lib_") and not k.endswith("_id")}
-        if sorted(flag_libs) != (["ccorr_valid", "fipm_native", "peaks",
-                                  "warp_affine"] if dev.type == "cuda"
+        if sorted(flag_libs) != (["ccorr_valid", "descent_score",
+                                  "fipm_native", "peaks", "warp_affine"]
+                                 if dev.type == "cuda"
                                  else ["fipm_native"]):
             raise AssertionError(f"[21 aot] bundled {sorted(flag_libs)}")
         del frames, many, want_many
@@ -2568,10 +2584,10 @@ def aot_phase(fipm, warp_kernel, corr_kernel, dev, smi, warp, corr,
             if isinstance(v, float)) + f"; process wall {cold_wall:.2f} s "
             f"against {wall:.2f} s from the pack; nvcc runs "
             f"{cold['nvcc_runs']}, g++ runs {cold['gxx_runs']} ({smi})")
-        # The flagship runs the warp and the peak kernels: two nvcc, and
-        # one g++ for the BMP codec.
+        # The flagship runs the warp, the peak and the descent-score
+        # kernels: three nvcc, and one g++ for the BMP codec.
         if cold["count"] != len(truth) or cold["gxx_runs"] != 1 \
-                or cold["nvcc_runs"] != (2 if dev.type == "cuda" else 0):
+                or cold["nvcc_runs"] != (3 if dev.type == "cuda" else 0):
             raise AssertionError("[21 aot] the fresh process without the "
                                  "pack did not build from source")
     return w_launches, t7_c
@@ -2988,6 +3004,115 @@ def peaks_phase(fipm, peaks_kernel, dev, smi):
     entry.update(ms=t7["ms"], plain_ms=t7["plain_ms"],
                  bound_ms=t7["bound_ms"], bound_by="bytes",
                  loop_ms=t7["loop_ms"])
+    return entry
+
+
+def descent_phase(fipm, dev, smi):
+    """Phase 24: the descent-score kernel against its plain version on the
+    card, at the main path's own inputs: every chunk that one flagship
+    match (levels 5-0, chunks of 64, 32 and 8 candidates at k_ang 3), one
+    Test7 match (60x60 ROIs, k_ang 1) and a flagship batch of 8 frames
+    hand to descent_best, recorded from the matches; every output
+    bit-equal to the plain version on the card. Launches per match equal
+    to the recorded chunks and, in a second match under the profiler, to
+    its fipm.descent.chunk spans. Times of the kernel (host loop, and
+    device alone in a CUDA graph) and of the plain version on the card, in
+    turns, beside the bound (the ROIs and the template read once, at the
+    memory rate, against the multiply-adds at the int8 rate), at the
+    flagship's level-0 chunk and Test7's first chunk. Returns the
+    kernels-line entry."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from fastest_image_pattern_matching_tpu_torch.models import (
+        template_matcher as tm)
+    from fastest_image_pattern_matching_tpu_torch.ops import ncc
+    from fastest_image_pattern_matching_tpu_torch.utils import profiling
+
+    f_scene, f_templ, _ = flagship_scene()
+    f_cfg = flagship_config(fipm)
+    f_pat = fipm.learn_pattern(f_templ, 256, device=dev)
+    scene, templ, _ = many_target_scene(3648, 100)
+    cfg = many_target_config(fipm, 100)
+    pattern = fipm.learn_pattern(templ, cfg.min_reduce_area, device=dev)
+    frames = flagship_batch()[0]
+    batch8 = np.concatenate([frames, frames])
+    runs = {
+        "flagship": lambda: fipm.match(f_scene, f_pat, f_cfg, device=dev),
+        "Test7": lambda: fipm.match(scene, pattern, cfg, device=dev),
+        "flagship batch of 8": lambda: fipm.match_many(batch8, f_pat, f_cfg,
+                                                       device=dev)}
+    entry = {"name": "descent_score", "route": "cuda",
+             "source": "fastest_image_pattern_matching_tpu_torch/csrc/"
+                       "descent_score.cu",
+             "replaces": "none: the JAX package's descent maps are XLA "
+                         "operations (models/template_matcher.py:374-378)",
+             "launches": {}, "shapes": {}}
+    recorded = {}
+    for tag, run in runs.items():
+        run()
+        torch.cuda.synchronize()
+        before = profiling.counter("descent_score.launches")
+        calls = record_calls(tm, "descent_best", run)
+        torch.cuda.synchronize()
+        launches = profiling.counter("descent_score.launches") - before
+        profiling.reset_spans()
+        before = profiling.counter("descent_score.launches")
+        with profile(activities=[ProfilerActivity.CPU]):
+            run()
+            torch.cuda.synchronize()
+        traced = profiling.counter("descent_score.launches") - before
+        chunks = sum(r.name == "fipm.descent.chunk"
+                     for r in profiling.spans())
+        profiling.reset_spans()
+        if not (launches == len(calls) == traced == chunks > 0) or not all(
+                c[-1] for c in calls):
+            raise AssertionError(
+                f"[24 descent] {tag}: {launches} launches for {len(calls)} "
+                f"chunks ({traced} launches and {chunks} chunk spans under "
+                "the profiler); every chunk must launch the kernel once")
+        for args in calls:
+            got = ncc.descent_best(*args)
+            want = ncc.descent_best_ref(*args[:-1])
+            for g, w in zip(got, want):
+                if g.dtype == torch.float32:
+                    g, w = g.view(torch.int32), w.view(torch.int32)
+                if not torch.equal(g, w):
+                    raise AssertionError(
+                        f"[24 descent] {tag}: the kernel differs from the "
+                        f"plain version on ROIs {tuple(args[0].shape)}")
+        shapes = sorted({(tuple(a[1].shape), a[6], a[7]) for a in calls},
+                        key=lambda x: -x[0][0])
+        entry["launches"][tag] = launches
+        recorded[tag] = calls
+        log(f"[24 descent] {tag}: {launches} launches, one a chunk "
+            f"({chunks} fipm.descent.chunk spans under the profiler), each "
+            f"bit-equal to the plain version on the card; templates, cc and "
+            f"k_ang: {shapes} ({smi})")
+    timed = {
+        "flagship L0 chunk": next(a for a in recorded["flagship"]
+                                  if tuple(a[1].shape) == (521, 762)),
+        "Test7 chunk": recorded["Test7"][0]}
+    for tag, args in timed.items():
+        rois, templ_l = args[0], args[1]
+        kernel = lambda: ncc.descent_best(*args)
+        plain = lambda: ncc.descent_best_ref(*args[:-1])
+        km, pm = turns_ms(kernel, plain, 50, 5)
+        kdm = device_ms(kernel)
+        B, H, W = rois.shape
+        h, w = templ_l.shape
+        n_bytes = 4 * (B * H * W + h * w) + B * (4 + 8 + 1 + 36)
+        bms, by = bound_ms(n_bytes, 2 * B * 49 * h * w, INT8_OPS_PER_S)
+        entry["shapes"][tag] = dict(shape=[B, H, W], templ=[h, w],
+                                    ms=kdm, loop_ms=km, plain_ms=pm,
+                                    bound_ms=bms, bound_by=by)
+        log(f"[24 descent] {tag}: {B} ROIs of {H}x{W}, a {h}x{w} template; "
+            f"kernel loop {km:.4f} ms, device {kdm:.4f} ms "
+            f"({100 * bms / kdm:.2f}% of bound); plain version on the card "
+            f"{pm:.3f} ms; bound {bms:.4f} ms by {by} ({smi})")
+    l0 = entry["shapes"]["flagship L0 chunk"]
+    entry.update(ms=l0["ms"], plain_ms=l0["plain_ms"],
+                 bound_ms=l0["bound_ms"], bound_by=l0["bound_by"],
+                 loop_ms=l0["loop_ms"])
     return entry
 
 

@@ -7,7 +7,7 @@ re-learning the template and without building anything:
   * `export_match_pack` writes the learned pattern, the config and the
     static plan of every program (one frame, and each match_many bucket)
     into one .npz pack; with include_executables=True it also bundles the
-    shared libraries the path loads (the three CUDA kernels and the native
+    shared libraries the path loads (the four CUDA kernels and the native
     host library on a card, the native library on the CPU), built first
     if this host has not built them yet.
   * `AotMatcher.load` checks the pack, installs the bundled libraries
@@ -56,7 +56,8 @@ from .config import MatchConfig
 from .models import orb as _orb
 from .models import template_matcher as _tm
 from .ops.cuda import build as _build
-from .ops.cuda import corr_kernel, peaks_kernel, warp_kernel
+from .ops.cuda import (corr_kernel, descent_score_kernel, peaks_kernel,
+                       warp_kernel)
 from .types import LearnedPattern, MatchResult
 from .utils.device import resolve_device
 from .utils.imageio import ensure_gray
@@ -68,7 +69,7 @@ _FORMAT_VERSION = 1
 BUNDLE_REJECTS = 0
 
 _CUDA_SOURCES = (warp_kernel.SOURCE, corr_kernel.SOURCE,
-                 peaks_kernel.SOURCE)
+                 peaks_kernel.SOURCE, descent_score_kernel.SOURCE)
 _NATIVE_STEM = "fipm_native"
 
 
@@ -176,6 +177,7 @@ def _install_bundle(data, path: str, dev: torch.device) -> List[str]:
     loaders = {_stem(warp_kernel.SOURCE): warp_kernel._lib,
                _stem(corr_kernel.SOURCE): corr_kernel._lib,
                _stem(peaks_kernel.SOURCE): peaks_kernel._lib,
+               _stem(descent_score_kernel.SOURCE): descent_score_kernel._lib,
                _NATIVE_STEM: native.get_lib}
     for stem in installed:
         loaders[stem]()

@@ -37,7 +37,7 @@ from ..utils.chunking import chunked_map
 from ..utils.device import resolve_device
 from ..utils.profiling import span
 from ..ops.pyramid import build_pyramid
-from ..ops.ncc import ncc_score_map
+from ..ops.ncc import descent_best, ncc_score_map
 from ..ops.peaks import extract_peaks
 from ..ops.nms import filter_overlaps, rotated_rect_corners
 from ..ops.subpixel import subpixel_refine
@@ -81,30 +81,6 @@ def _lexsort(keys) -> torch.Tensor:
         o = torch.sort(kk, stable=True).indices
         order = o if order is None else order.gather(-1, o)
     return order
-
-
-def _roi_best(smap: torch.Tensor, cc: int, k_ang: int):
-    """The best of each descent ROI's 7x7 score map [cc * k_ang, 7, 7]
-    (first max in row-major order): its value, (x, y), whether it lies
-    on the border, and the 3x3 patch around it, clamped inside, for the
-    subpixel fit; each reshaped to [cc, k_ang, ...]."""
-    dev = smap.device
-    flat = smap.reshape(cc * k_ang, 49)
-    fi = torch.argmax(flat, dim=1)
-    v = flat[torch.arange(cc * k_ang, device=dev), fi]
-    py = (fi // 7).to(torch.int32)
-    px = (fi % 7).to(torch.int32)
-    border = (px == 0) | (px == 6) | (py == 0) | (py == 6)
-    sy = torch.clamp(py - 1, 0, 4).to(torch.int64)
-    sx = torch.clamp(px - 1, 0, 4).to(torch.int64)
-    r3 = torch.arange(3, device=dev)
-    patch = smap[torch.arange(cc * k_ang, device=dev)[:, None, None],
-                 (sy[:, None] + r3)[:, :, None],
-                 (sx[:, None] + r3)[:, None, :]]
-    return (v.reshape(cc, k_ang),
-            torch.stack([px, py], -1).reshape(cc, k_ang, 2),
-            border.reshape(cc, k_ang),
-            patch.reshape(cc, k_ang, 3, 3))
 
 
 def _pick(keep, score_s, pt_s, ang_s, overflow, max_pos: int, templ_hw):
@@ -327,8 +303,8 @@ def build_stages(plan: _Plan, stats, device, narrow_hook=None):
     N*C candidates, each carrying its frame index, and finalize returns
     [N, ...] results. One frame is the case N = 1.
 
-    stats: per level (mean, norm, inv_area, result_equal1) as Python
-    values. Returns a namespace of the stage functions; _run composes
+    stats: per level (mean, norm, inv_area, result_equal1, u8_valued) as
+    Python values. Returns a namespace of the stage functions; _run composes
     them.
 
     narrow_hook: optional fn(ptLT, ang, score, alive, fidx) -> alive, used
@@ -392,7 +368,7 @@ def build_stages(plan: _Plan, stats, device, narrow_hook=None):
         and K peak rounds for the chunk. canvases: sweep_canvases' chunks,
         when computed already."""
         with span("fipm.sweep"):
-            mean, norm, inv_area, equal1 = stats[top]
+            mean, norm, inv_area, equal1, _ = stats[top]
             N, A = src_top.shape[0], inv_mats.shape[0]
             Ho, Wo = Hc - th_t + 1, Wc - tw_t + 1
             xs = torch.arange(Wo, dtype=torch.int32,
@@ -441,7 +417,16 @@ def build_stages(plan: _Plan, stats, device, narrow_hook=None):
         (flat [M], candidate i on frame fidx[i]), in chunks of candidates;
         the caller sorts alive-first so dead chunks at the end cost
         nothing."""
-        mean, norm, inv_area, equal1 = stats[l]
+        mean, norm, inv_area, equal1, u8_templ = stats[l]
+        # The descent-score kernel serves the chunks on the card where its
+        # integer sums are exact: the ROIs hold integers in [0, 255] when
+        # the warps round (quantize_warp) frames held to [0, 255] (host
+        # frames by _check_u8, device frames by _prep_src's clip under
+        # compute_dtype "bf16"), and the template when it is u8-valued; a
+        # flat template (equal1) scores all ones. Everywhere else, and on
+        # the CPU, the plain route (ops/ncc.py::descent_best).
+        integer = (cfg.quantize_warp and cfg.compute_dtype == "bf16"
+                   and u8_templ)
         Cl = ptLT.shape[0]
         sh_l, sw_l = src_sizes[l]
         th_l, tw_l = plan.templ_shapes[l]
@@ -513,10 +498,8 @@ def build_stages(plan: _Plan, stats, device, narrow_hook=None):
                 p2, aa, f = args  # [cc, 2], [cc, k_ang], [cc]
                 cc = p2.shape[0]
                 roi = rois(p2, aa.reshape(cc * k_ang), f)
-                smap = ncc_score_map(roi, templ_l, mean, norm, inv_area,
-                                     equal1)  # [cc*k, 7, 7]
-                with span("fipm.descent.best"):
-                    return _roi_best(smap, cc, k_ang)
+                return descent_best(roi, templ_l, mean, norm, inv_area,
+                                    equal1, cc, k_ang, integer)
 
         chunk = _descend_chunk(roi_hw, th_l * tw_l, k_ang)
         v, xy, border, patch = chunked_map(cand_chunk, (ptLT2, angs, fidx),
@@ -773,8 +756,8 @@ def upload_frames(srcs, dev) -> torch.Tensor:
 
 def _pattern_inputs(pattern: LearnedPattern, dev):
     """Per-level stats and the template pyramid on `dev`."""
-    stats = tuple((lv.mean, lv.norm, lv.inv_area, lv.result_equal1)
-                  for lv in pattern.levels)
+    stats = tuple((lv.mean, lv.norm, lv.inv_area, lv.result_equal1,
+                   lv.u8_valued) for lv in pattern.levels)
     templs = tuple(torch.tensor(np.asarray(lv.templ, np.float32),
                                 device=dev) for lv in pattern.levels)
     return stats, templs

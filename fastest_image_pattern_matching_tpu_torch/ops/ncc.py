@@ -19,7 +19,10 @@ package's rule (`ncc_score_map`, method "auto"), kept so that the port
 takes the route JAX takes; its conv/fft crossover is the JAX package's
 operation-count estimate, not a crossover measured on the card (PERF.md):
   * shiftmm: one f64 matmul against all shifted template copies, for the
-    7x7 descent maps (Ho*Wo <= 512);
+    7x7 descent maps (Ho*Wo <= 512); on the card, the descent's integer
+    ROIs skip it: descent_best sends them to the descent-score kernel
+    (ops/cuda/descent_score_kernel.py), which scores them and picks each
+    map's best in one launch;
   * tiled: large maps with small templates (Ho*Wo > 65536, 2 <= w <= 129,
     h <= 64), where the JAX package runs its Pallas tiled-band kernel. CUDA
     tensors launch the hand-written kernel (ops/cuda/corr_kernel.py), CPU
@@ -42,7 +45,7 @@ import torch
 import torch.nn.functional as F
 
 from ..utils.profiling import span
-from .cuda import corr_kernel
+from .cuda import corr_kernel, descent_score_kernel
 from .rounding import f32, fma
 
 FLT_EPSILON = np.float32(1.1920929e-07)
@@ -207,28 +210,94 @@ def _score_map(canvases, templ, templ_mean, templ_norm, inv_area,
         s1c = window_sums(sc, (h, w))
         s2c = window_sums(sc * sc, (h, w))
     with span("fipm.ncc.score"):
-        return _scores(ccorr_c, s1c, s2c, templ_mean, templ_norm, inv_area,
-                       area)
+        return _scores(ccorr_c, s1c, s2c, score_constants(
+            templ_mean, templ_norm, inv_area, area))
 
 
-def _scores(ccorr_c, s1c, s2c, templ_mean, templ_norm, inv_area, area):
+def score_constants(templ_mean: float, templ_norm: float, inv_area: float,
+                    area: float) -> Tuple[float, ...]:
+    """The scalars of the NCC epilogue, each rounded to f32 once on the
+    host: 128 - mean, 16384 * area, inv_area, the template norm, the
+    cutoff's 10 * FLT_EPSILON and the divisor's floor 1e-30. _scores and
+    the descent-score kernel take these six."""
+    return (f32(128.0 - f32(templ_mean)), f32(16384.0 * area),
+            f32(inv_area), f32(templ_norm), f32(10.0 * FLT_EPSILON),
+            f32(1e-30))
+
+
+def _scores(ccorr_c, s1c, s2c, consts):
     """The NCC epilogue: the centred correlation and the window sums to
-    scores, with the reference's epsilon and 1.125 guards."""
+    scores, with the reference's epsilon and 1.125 guards; consts from
+    score_constants."""
+    mean_c, area_c, inv_area_c, norm_c, eps10, tiny = consts
 
     # Both sums are single-rounding multiply-adds: the cancellation in
     # diff2 = s2c - s1c^2/area is the epilogue's most fragile step, and
     # this is also the form the JAX package compiles to on the CPU.
-    num = fma(s1c, f32(128.0 - f32(templ_mean)), ccorr_c)
-    wnd_sum2 = s2c + 256.0 * s1c + f32(16384.0 * area)
-    diff2 = torch.clamp_min(fma(-(s1c * s1c), f32(inv_area), s2c), 0.0)
+    num = fma(s1c, mean_c, ccorr_c)
+    wnd_sum2 = s2c + 256.0 * s1c + area_c
+    diff2 = torch.clamp_min(fma(-(s1c * s1c), inv_area_c, s2c), 0.0)
 
-    cutoff = torch.clamp_max(f32(10.0 * FLT_EPSILON) * wnd_sum2, 0.5)
-    t = torch.where(diff2 <= cutoff, 0.0,
-                    torch.sqrt(diff2) * f32(templ_norm))
+    cutoff = torch.clamp_max(eps10 * wnd_sum2, 0.5)
+    t = torch.where(diff2 <= cutoff, 0.0, torch.sqrt(diff2) * norm_c)
 
     num_abs = torch.abs(num)
-    safe_t = torch.clamp_min(t, f32(1e-30))
+    safe_t = torch.clamp_min(t, tiny)
     return torch.where(
         num_abs < t, num / safe_t,
         torch.where(num_abs < t * 1.125, torch.sign(num), 0.0))
 
+
+def roi_best(smap: torch.Tensor, cc: int, k_ang: int):
+    """The best of each descent ROI's 7x7 score map [cc * k_ang, 7, 7]
+    (first max in row-major order): its value, (x, y), whether it lies
+    on the border, and the 3x3 patch around it, clamped inside, for the
+    subpixel fit; each reshaped to [cc, k_ang, ...]."""
+    dev = smap.device
+    flat = smap.reshape(cc * k_ang, 49)
+    fi = torch.argmax(flat, dim=1)
+    v = flat[torch.arange(cc * k_ang, device=dev), fi]
+    py = (fi // 7).to(torch.int32)
+    px = (fi % 7).to(torch.int32)
+    border = (px == 0) | (px == 6) | (py == 0) | (py == 6)
+    sy = torch.clamp(py - 1, 0, 4).to(torch.int64)
+    sx = torch.clamp(px - 1, 0, 4).to(torch.int64)
+    r3 = torch.arange(3, device=dev)
+    patch = smap[torch.arange(cc * k_ang, device=dev)[:, None, None],
+                 (sy[:, None] + r3)[:, :, None],
+                 (sx[:, None] + r3)[:, None, :]]
+    return (v.reshape(cc, k_ang),
+            torch.stack([px, py], -1).reshape(cc, k_ang, 2),
+            border.reshape(cc, k_ang),
+            patch.reshape(cc, k_ang, 3, 3))
+
+
+def descent_best_ref(rois, templ, templ_mean, templ_norm, inv_area,
+                     result_equal1, cc: int, k_ang: int):
+    """The best of each descent ROI rois [cc * k_ang, h + 6, w + 6]
+    against templ [h, w]: its 7x7 score map by the shiftmm route, then
+    roi_best. The plain version of the descent-score kernel, and the
+    descent's route wherever the kernel does not serve."""
+    smap = ncc_score_map(rois, templ, templ_mean, templ_norm, inv_area,
+                         result_equal1, method="shiftmm")
+    with span("fipm.descent.best"):
+        return roi_best(smap, cc, k_ang)
+
+
+def descent_best(rois, templ, templ_mean, templ_norm, inv_area,
+                 result_equal1, cc: int, k_ang: int, integer: bool):
+    """descent_best_ref's outputs. On the card, where the caller vouches
+    that the ROIs and the template hold integers in [0, 255] (`integer`)
+    and the template is not flat, from one launch of the descent-score
+    kernel (ops/cuda/descent_score_kernel.py), whose integer sums make it
+    bit-equal to the plain version; everywhere else from the plain
+    version."""
+    if integer and not result_equal1 and rois.is_cuda:
+        with span("fipm.descent.score"):
+            h, w = templ.shape
+            return descent_score_kernel.descent_score_cuda(
+                rois, templ, score_constants(templ_mean, templ_norm,
+                                             inv_area, float(h * w)),
+                cc, k_ang)
+    return descent_best_ref(rois, templ, templ_mean, templ_norm, inv_area,
+                            result_equal1, cc, k_ang)

@@ -11,6 +11,7 @@ baked into the compiled match program as scalars.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -24,6 +25,13 @@ class LevelData:
     norm: float                # sigma * sqrt(area)
     inv_area: float
     result_equal1: bool        # flat template -> all scores 1
+
+    @functools.cached_property
+    def u8_valued(self) -> bool:
+        """Whether templ holds integers in [0, 255] alone, worked out once
+        a level: the descent-score kernel's integer sums need it."""
+        t = np.asarray(self.templ)
+        return bool(np.all((t >= 0) & (t <= 255) & (np.rint(t) == t)))
 
 
 @dataclasses.dataclass
