@@ -148,6 +148,8 @@ import time
 
 import numpy as np
 
+from fipm_bench.scenes.glyph_plate import FONT_5X7, glyph, ocr_plate
+
 FLAGSHIP_POSES = [(1725.9, 1045.4, 0.05), (2662.9, 1537.4, -119.98),
                   (1768.9, 2098.5, 120.15)]
 SMALL_POSES = [(150.0, 130.0, 0.0), (430.0, 160.0, 120.0),
@@ -348,84 +350,6 @@ def flagship_batch():
                                                      dtype=np.uint8))
     truths.append([])
     return np.stack(frames), t, truths
-
-
-# A 5x7 dot-matrix font of 0-9 and A-Z, one string of 7 rows of 5 columns
-# per glyph ('#' = ink).
-FONT_5X7 = {
-    "0": "01110 10001 10011 10101 11001 10001 01110",
-    "1": "00100 01100 00100 00100 00100 00100 01110",
-    "2": "01110 10001 00001 00010 00100 01000 11111",
-    "3": "11111 00010 00100 00010 00001 10001 01110",
-    "4": "00010 00110 01010 10010 11111 00010 00010",
-    "5": "11111 10000 11110 00001 00001 10001 01110",
-    "6": "00110 01000 10000 11110 10001 10001 01110",
-    "7": "11111 00001 00010 00100 01000 01000 01000",
-    "8": "01110 10001 10001 01110 10001 10001 01110",
-    "9": "01110 10001 10001 01111 00001 00010 01100",
-    "A": "01110 10001 10001 11111 10001 10001 10001",
-    "B": "11110 10001 10001 11110 10001 10001 11110",
-    "C": "01110 10001 10000 10000 10000 10001 01110",
-    "D": "11100 10010 10001 10001 10001 10010 11100",
-    "E": "11111 10000 10000 11110 10000 10000 11111",
-    "F": "11111 10000 10000 11110 10000 10000 10000",
-    "G": "01110 10001 10000 10111 10001 10001 01111",
-    "H": "10001 10001 10001 11111 10001 10001 10001",
-    "I": "01110 00100 00100 00100 00100 00100 01110",
-    "J": "00111 00010 00010 00010 00010 10010 01100",
-    "K": "10001 10010 10100 11000 10100 10010 10001",
-    "L": "10000 10000 10000 10000 10000 10000 11111",
-    "M": "10001 11011 10101 10101 10001 10001 10001",
-    "N": "10001 10001 11001 10101 10011 10001 10001",
-    "O": "01110 10001 10001 10001 10001 10001 01110",
-    "P": "11110 10001 10001 11110 10000 10000 10000",
-    "Q": "01110 10001 10001 10001 10101 10010 01101",
-    "R": "11110 10001 10001 11110 10100 10010 10001",
-    "S": "01111 10000 10000 01110 00001 00001 11110",
-    "T": "11111 00100 00100 00100 00100 00100 00100",
-    "U": "10001 10001 10001 10001 10001 10001 01110",
-    "V": "10001 10001 10001 10001 10001 01010 00100",
-    "W": "10001 10001 10001 10101 10101 10101 01010",
-    "X": "10001 10001 01010 00100 01010 10001 10001",
-    "Y": "10001 10001 10001 01010 00100 00100 00100",
-    "Z": "11111 00001 00010 00100 01000 10000 11111",
-}
-
-
-def glyph(ch, hw=(52, 34)):
-    """Glyph `ch` of FONT_5X7 as a u8 image of hw: dark dots (40) on a
-    light ground (220), each of the 5x7 cells scaled to the image with a
-    one-pixel gap, and a little deterministic texture."""
-    h, w = hw
-    rows = [[c == "1" for c in r] for r in FONT_5X7[ch].split()]
-    yy = np.arange(h) * 7 // h
-    xx = np.arange(w) * 5 // w
-    gap_y = (np.arange(h) * 7 % h) < 7
-    gap_x = (np.arange(w) * 5 % w) < 5
-    ink = np.array(rows)[yy[:, None], xx[None, :]] & ~gap_y[:, None] \
-        & ~gap_x[None, :]
-    texture = np.random.default_rng(ord(ch)).integers(0, 12, (h, w))
-    return np.where(ink, 40 + texture, 220 - texture).astype(np.uint8)
-
-
-def ocr_plate(text="M12X05", hw=(360, 640), glyph_hw=(52, 34), seed=4,
-              x0=40, y0=140):
-    """tools/ocr_bench.py::build_scene with FONT_5X7 glyphs: a plate of
-    background 150-190 with `text` stamped left to right at a pitch of the
-    glyph width + 14 px, each glyph's row jittered by up to 6 px. Returns
-    (plate, [(char, cx, cy)])."""
-    rng = np.random.default_rng(seed)
-    scene = rng.integers(150, 190, hw, dtype=np.uint8)
-    x = x0
-    placed = []
-    for ch in text:
-        g = glyph(ch, glyph_hw)
-        y = y0 + int(rng.integers(-6, 7))
-        scene[y:y + g.shape[0], x:x + g.shape[1]] = g
-        placed.append((ch, x + (g.shape[1] - 1) / 2.0,
-                       y + (g.shape[0] - 1) / 2.0))
-        x += g.shape[1] + 14
-    return scene, placed
 
 
 def ocr_config(fipm):

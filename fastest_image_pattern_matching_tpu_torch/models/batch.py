@@ -35,7 +35,7 @@ from ..config import MatchConfig
 from ..ops.pyramid import build_pyramid
 from ..types import LearnedPattern, MatchResult
 from ..utils.device import resolve_device
-from ..utils.profiling import span
+from ..utils.profiling import count, span
 from .template_matcher import (_check_area, _finalized, _frames,
                                _match_frames, _pack_result, _pattern_inputs,
                                _plan_inputs, _prep_src, _results, _stacked,
@@ -172,12 +172,17 @@ def _match_group(pyr, src_hw, group: Sequence[LearnedPattern],
         st = build_stages(plan, stats, dev)
         if canvases is None:
             canvases = st.sweep_canvases(pyr[plan.top], sweep[0])
-        runs.append((st, st.candidates(pyr[:plan.top + 1], templs, *sweep,
-                                       canvases=canvases)))
+        with span("fipm.patterns.pattern"):
+            runs.append((st, st.candidates(pyr[:plan.top + 1], templs,
+                                           *sweep, canvases=canvases)))
 
     def finalize(nms_cap):
-        return torch.cat([_pack_result(st.finalize(*cands, 1, nms_cap),
-                                       cfg.max_pos) for st, cands in runs])
+        packed = []
+        for st, cands in runs:
+            with span("fipm.patterns.pattern"):
+                packed.append(_pack_result(st.finalize(*cands, 1, nms_cap),
+                                           cfg.max_pos))
+        return torch.cat(packed)
     return plan, finalize
 
 
@@ -197,17 +202,26 @@ def match_patterns(src, patterns: Sequence[LearnedPattern],
     patterns fall into many groups, because each group costs it one
     compile; eager PyTorch compiles nothing, and a group costs only its
     own sweep warp, so the port does not warn.
+
+    The call is the span fipm.match_patterns, and each pattern's stages
+    (its candidates, and again its finalize) a span
+    fipm.patterns.pattern; the counters patterns.groups and patterns.run
+    add the call's plan groups and patterns.
     """
     cfg = cfg or MatchConfig()
     dev = resolve_device(device)
     groups = _pattern_groups(patterns)
     if not groups:
         return []
-    src_hw, pyr = _source_pyramid(src, patterns, cfg, dev)
-    results: List[Optional[Dict[str, np.ndarray]]] = [None] * len(patterns)
-    for idxs in groups.values():
-        plan, finalize = _match_group(pyr, src_hw,
-                                      [patterns[i] for i in idxs], cfg, dev)
-        for i, out in zip(idxs, _finalized(plan, finalize)):
-            results[i] = out
-    return results
+    with span("fipm.match_patterns"):
+        src_hw, pyr = _source_pyramid(src, patterns, cfg, dev)
+        results: List[Optional[Dict[str, np.ndarray]]] = \
+            [None] * len(patterns)
+        for idxs in groups.values():
+            count("patterns.groups")
+            count("patterns.run", len(idxs))
+            plan, finalize = _match_group(
+                pyr, src_hw, [patterns[i] for i in idxs], cfg, dev)
+            for i, out in zip(idxs, _finalized(plan, finalize)):
+                results[i] = out
+        return results

@@ -28,6 +28,7 @@ from ..config import MatchConfig
 from ..ops.nms import filter_overlaps
 from ..types import LearnedPattern, MatchResult
 from ..utils.device import resolve_device
+from ..utils.profiling import count, span
 from .template_matcher import _results, learn_pattern, match
 
 
@@ -72,48 +73,59 @@ class MultiTemplateMatcher:
         """batched=True (default) runs the glyph set through
         models.batch.match_patterns (the source pyramid built once, the
         sweep canvases once per group of same-shaped glyphs); batched=False
-        matches glyph by glyph, the reference's structure."""
-        labels, pats = [], []
-        for label, pat in self.patterns.items():
-            t0 = pat.levels[0].templ
-            if t0.shape[0] * t0.shape[1] > src.shape[0] * src.shape[1]:
-                continue  # template larger than source
-            labels.append(label)
-            pats.append(pat)
-        out: List[LabeledMatch] = []
-        if batched and pats:
-            from .batch import match_patterns
-            arrs = match_patterns(src, pats, self.config, device=self.device)
-            for label, pat, arr in zip(labels, pats, arrs):
-                out.extend(LabeledMatch(label, r)
-                           for r in _results(arr, pat))
-        else:
-            for label, pat in zip(labels, pats):
-                try:
-                    results = match(src, pat, self.config,
-                                    device=self.device)
-                except ValueError:
-                    continue
-                out.extend(LabeledMatch(label, r) for r in results)
-        out.sort(key=lambda m: -m.result.score)
-        if cross_nms and out:
-            out = self._cross_nms(out)
-        return out
+        matches glyph by glyph, the reference's structure. The call is
+        the span fipm.ocr."""
+        with span("fipm.ocr"):
+            labels, pats = [], []
+            for label, pat in self.patterns.items():
+                t0 = pat.levels[0].templ
+                if t0.shape[0] * t0.shape[1] > src.shape[0] * src.shape[1]:
+                    continue  # template larger than source
+                labels.append(label)
+                pats.append(pat)
+            out: List[LabeledMatch] = []
+            if batched and pats:
+                from .batch import match_patterns
+                arrs = match_patterns(src, pats, self.config,
+                                      device=self.device)
+                for label, pat, arr in zip(labels, pats, arrs):
+                    out.extend(LabeledMatch(label, r)
+                               for r in _results(arr, pat))
+            else:
+                for label, pat in zip(labels, pats):
+                    try:
+                        results = match(src, pat, self.config,
+                                        device=self.device)
+                    except ValueError:
+                        continue
+                    out.extend(LabeledMatch(label, r) for r in results)
+            out.sort(key=lambda m: -m.result.score)
+            if cross_nms and out:
+                out = self._cross_nms(out)
+            return out
 
     def _cross_nms(self, matches: List[LabeledMatch]) -> List[LabeledMatch]:
         """Greedy cross-template suppression in score order, in float64 on
-        the CPU; the median rect area is the ratio base."""
-        quads = torch.tensor([[m.result.lt, m.result.rt, m.result.rb,
-                               m.result.lb] for m in matches],
-                             dtype=torch.float64)
-        areas = [abs(np.linalg.norm(np.subtract(m.result.rt, m.result.lt))
-                     * np.linalg.norm(np.subtract(m.result.lb, m.result.lt)))
-                 for m in matches]
-        keep = filter_overlaps(quads, torch.ones(len(matches),
-                                                 dtype=torch.bool),
-                               float(np.median(areas)),
-                               self.config.max_overlap)
-        return [m for m, k in zip(matches, keep.tolist()) if k]
+        the CPU; the median rect area is the ratio base. The span
+        fipm.ocr.cross_nms; the counters ocr.matches and ocr.kept add the
+        matches in and those kept."""
+        with span("fipm.ocr.cross_nms"):
+            quads = torch.tensor([[m.result.lt, m.result.rt, m.result.rb,
+                                   m.result.lb] for m in matches],
+                                 dtype=torch.float64)
+            areas = [abs(np.linalg.norm(np.subtract(m.result.rt,
+                                                    m.result.lt))
+                         * np.linalg.norm(np.subtract(m.result.lb,
+                                                      m.result.lt)))
+                     for m in matches]
+            keep = filter_overlaps(quads, torch.ones(len(matches),
+                                                     dtype=torch.bool),
+                                   float(np.median(areas)),
+                                   self.config.max_overlap)
+            kept = [m for m, k in zip(matches, keep.tolist()) if k]
+            count("ocr.matches", len(matches))
+            count("ocr.kept", len(kept))
+            return kept
 
 
 def match_glyphs(src: np.ndarray, glyph_dir: str,
@@ -138,16 +150,17 @@ def read_string(matches: Sequence[LabeledMatch], min_score: float = 0.0,
     does not move when a better-scoring duplicate replaces the kept one,
     so the merge window cannot chain across a row of distinct glyphs —
     but x_merge must still be below the glyph pitch, or alternating
-    characters are swallowed."""
-    hits = [m for m in matches if m.result.score >= min_score]
-    hits.sort(key=lambda m: m.result.pos_x)
-    out: List[LabeledMatch] = []
-    anchor_x = None
-    for m in hits:
-        if out and abs(m.result.pos_x - anchor_x) < x_merge:
-            if m.result.score > out[-1].result.score:
-                out[-1] = m
-            continue
-        out.append(m)
-        anchor_x = m.result.pos_x
-    return "".join(m.label for m in out)
+    characters are swallowed. The call is the span fipm.ocr.read."""
+    with span("fipm.ocr.read"):
+        hits = [m for m in matches if m.result.score >= min_score]
+        hits.sort(key=lambda m: m.result.pos_x)
+        out: List[LabeledMatch] = []
+        anchor_x = None
+        for m in hits:
+            if out and abs(m.result.pos_x - anchor_x) < x_merge:
+                if m.result.score > out[-1].result.score:
+                    out[-1] = m
+                continue
+            out.append(m)
+            anchor_x = m.result.pos_x
+        return "".join(m.label for m in out)

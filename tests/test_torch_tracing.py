@@ -4,7 +4,9 @@ and match_many, nested as the stages nest, one call id a call, on the
 profiler's clock, with the results unchanged; the descent's live and slot
 counters; the PNG decode's split; chunked_map's chunks; the spans and
 counters of orb_match and orb_match_many, results bit-equal with the
-profiler on and off."""
+profiler on and off; the spans and counters of a glyph read
+(MultiTemplateMatcher.match_all through match_patterns, the suppression
+across glyphs, read_string)."""
 
 import threading
 
@@ -452,3 +454,84 @@ def test_orb_match_many_spans_count_every_frame(orb_problem):
     _check_orb_tree(rows, cfg, len(frames))
     assert program.counts(rows, "orb.inliers") == sum(
         r.num_inliers for r in traced)
+
+
+# Each span of a glyph read and the span it opens inside (fipm.ocr and
+# fipm.ocr.read are entries of their own).
+OCR_PARENT = {
+    "fipm.match_patterns": "fipm.ocr", "fipm.ocr.cross_nms": "fipm.ocr",
+    "fipm.patterns.pattern": "fipm.match_patterns",
+}
+# The stages of one pattern.
+PATTERN_STAGES = {"fipm.sweep", "fipm.select", "fipm.descent",
+                  "fipm.finalize"}
+
+
+@pytest.fixture(scope="module")
+def ocr_problem():
+    """Six glyphs of one shape (look-alikes among them) learned by a
+    MultiTemplateMatcher at the CLI's ocr settings, and a 120x320 plate
+    that stamps four of them."""
+    from fastest_image_pattern_matching_tpu_torch.models.multi_template \
+        import MultiTemplateMatcher
+    from fipm_bench.scenes import glyph_plate
+    plate, _ = glyph_plate.ocr_plate("0B1O", hw=(120, 320), y0=34)
+    cfg = tfipm.MatchConfig(max_pos=8, score=0.85, tolerance_angle=0.0,
+                            max_overlap=0.4, min_reduce_area=256)
+    m = MultiTemplateMatcher(cfg, device="cpu")
+    for ch in "0O8B1I":
+        m.learn(ch, glyph_plate.glyph(ch))
+    return plate, m
+
+
+def _labelled(matches):
+    return [(m.label,) + _rows_of([m.result])[0] for m in matches]
+
+
+def test_ocr_profiler_off_records_nothing(ocr_problem):
+    plate, m = ocr_problem
+    profiling.reset_spans()
+    runs = profiling.counter("patterns.run")
+    m.match_all(plate, cross_nms=True)
+    assert profiling.spans() == [] and profiling.dropped_spans() == 0
+    assert profiling.counter("patterns.run") == runs + len(m.patterns)
+
+
+def test_ocr_spans_nest_count_and_leave_results(ocr_problem):
+    from fastest_image_pattern_matching_tpu_torch.models.multi_template \
+        import read_string
+    plate, m = ocr_problem
+    plain = m.match_all(plate, cross_nms=True)
+    unsuppressed = m.match_all(plate)
+
+    def read():
+        out = m.match_all(plate, cross_nms=True)
+        return out, read_string(out, m.config.score)
+    (traced, text), rows, ranges = _traced(read)
+    assert _labelled(traced) == _labelled(plain) and text == "0B1O"
+    assert [r.name for r in rows] == [n for n, _, _ in ranges]
+    names = [r.name for r in rows]
+    assert [n for n, r in zip(names, rows) if r.parent == -1] == [
+        "fipm.ocr", "fipm.ocr.read"]
+    assert len({r.call for r in rows}) == 2
+    for r in rows:
+        if r.parent == -1:
+            continue
+        p = rows[r.parent]
+        assert p.start_ns <= r.start_ns and r.end_ns <= p.end_ns
+        if r.name in OCR_PARENT:
+            assert p.name == OCR_PARENT[r.name], (r.name, p.name)
+        if p.name == "fipm.patterns.pattern":
+            assert r.name in PATTERN_STAGES, r.name
+    n = len(m.patterns)
+    assert names.count("fipm.match_patterns") == 1
+    assert names.count("fipm.ocr.cross_nms") == 1
+    # Each pattern's candidates, then its finalize.
+    assert names.count("fipm.patterns.pattern") == 2 * n
+    assert program.counts(rows, "patterns.run") == n
+    assert program.counts(rows, "patterns.groups") == 1
+    matches = program.counts(rows, "ocr.matches")
+    kept = program.counts(rows, "ocr.kept")
+    assert (matches, kept) == (len(unsuppressed), len(traced))
+    assert kept < matches
+    assert program.inclusive_ms(rows, "fipm.patterns.pattern") > 0.0

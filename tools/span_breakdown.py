@@ -40,16 +40,23 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 
 from fipm_bench import run, trace  # noqa: E402
 
-ENTRIES = ("fipm.match", "fipm.match_many", "fipm.orb")
+ENTRIES = ("fipm.match", "fipm.match_many", "fipm.orb", "fipm.ocr")
+# Spans that hold stages without being one: a glyph read's pattern loop
+# and each pattern's stages.
+WRAPPERS = ("fipm.match_patterns", "fipm.patterns.pattern")
 
 
 def stage_of(rows, i):
     """The span's stage: its ancestor (or itself) whose parent is a call's
-    entry span (ENTRIES); the entry's own name for an entry, and the
-    span's top-level name outside any call."""
+    entry span (ENTRIES) or, nearer, a wrapper (WRAPPERS); the entry's
+    own name for an entry, and the span's top-level name outside any
+    call."""
     chain = [i]
     while 0 <= rows[chain[-1]].parent < len(rows):
         chain.append(rows[chain[-1]].parent)
+    for k in range(1, len(chain) - 1):
+        if rows[chain[k]].name in WRAPPERS:
+            return rows[chain[k - 1]].name
     return rows[chain[-2] if len(chain) > 1 else chain[-1]].name
 
 
