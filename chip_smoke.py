@@ -124,11 +124,14 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      the size where the wrapper switches.
  24. the descent-score kernel against its plain version on the card, bit
      for bit, on every descent chunk of one flagship match (levels 5-0),
-     one Test7 match and a flagship batch of 8, recorded from the
-     matches; launches per match equal to the chunks that ran (the
-     fipm.descent.chunk spans under the profiler); kernel (host loop,
-     device alone), plain version on the card and bound at the flagship's
-     level-0 chunk (24 ROIs) and Test7's chunk (32 ROIs).
+     one Test7 match, a flagship batch of 8 and ocr.plate's read (36
+     glyphs of 52x34 as one stack: the launch with a template index),
+     recorded from the calls; the read equal to match_arrays of each
+     glyph on the card; launches per call equal to the chunks that ran
+     (the fipm.descent.chunk spans under the profiler); kernel (host
+     loop, device alone), plain version on the card and bound at the
+     flagship's level-0 chunk (24 ROIs), Test7's chunk (32 ROIs) and the
+     plate's level-1 and level-0 chunks.
 The last three lines of output are the kernels' JSON summary, the card's
 name and power limit, and {"ok": true, "device": {...}}. Imports nothing
 of JAX.
@@ -148,7 +151,8 @@ import time
 
 import numpy as np
 
-from fipm_bench.scenes.glyph_plate import FONT_5X7, glyph, ocr_plate
+from fipm_bench.scenes.glyph_plate import (FONT_5X7, glyph, make_pool,
+                                           ocr_plate)
 
 FLAGSHIP_POSES = [(1725.9, 1045.4, 0.05), (2662.9, 1537.4, -119.98),
                   (1768.9, 2098.5, 120.15)]
@@ -2931,20 +2935,38 @@ def peaks_phase(fipm, peaks_kernel, dev, smi):
     return entry
 
 
+def benchmark_plate(fipm, dev, seed=7):
+    """ocr.plate's read (fipm_bench/configs/ocr.json): a 360x640 plate,
+    its 36 glyph patterns of 52x34 learned on `dev` and its MatchConfig."""
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "fipm_bench", "configs", "ocr.json")) as f:
+        config = json.load(f)
+    glyphs, plates, _ = make_pool(config["scene_params"], 1, 0,
+                                  np.random.default_rng(seed))
+    cfg = fipm.MatchConfig(**config["match"])
+    pats = [fipm.learn_pattern(g, cfg.min_reduce_area, device=dev)
+            for g in glyphs.values()]
+    return plates[0], pats, cfg
+
+
 def descent_phase(fipm, dev, smi):
     """Phase 24: the descent-score kernel against its plain version on the
     card, at the main path's own inputs: every chunk that one flagship
     match (levels 5-0, chunks of 64, 32 and 8 candidates at k_ang 3), one
     Test7 match (60x60 ROIs, k_ang 1) and a flagship batch of 8 frames
-    hand to descent_best, recorded from the matches; every output
-    bit-equal to the plain version on the card. Launches per match equal
-    to the recorded chunks and, in a second match under the profiler, to
-    its fipm.descent.chunk spans. Times of the kernel (host loop, and
-    device alone in a CUDA graph) and of the plain version on the card, in
-    turns, beside the bound (the ROIs and the template read once, at the
-    memory rate, against the multiply-adds at the int8 rate), at the
-    flagship's level-0 chunk and Test7's first chunk. Returns the
-    kernels-line entry."""
+    hand to descent_best, and every chunk that ocr.plate's read (36 glyphs
+    as one stack, match_patterns) hands to descent_best_stack, recorded
+    from the calls; every output bit-equal to the plain version on the
+    card (descent_best_ref, descent_best_stack_ref), and the read equal
+    to match_arrays of each glyph on the card. Launches a call equal to
+    the recorded chunks and, in a second call under the profiler, to its
+    fipm.descent.chunk spans. Times of the kernel (host loop, and device
+    alone in a CUDA graph) and of the plain version on the card, in
+    turns, beside the bound (the ROIs, the templates they index and the
+    index read once, at the memory rate, against the multiply-adds at the
+    int8 rate), at the flagship's level-0 chunk, Test7's first chunk and
+    the plate's level-1 and level-0 chunks. Returns the kernels-line
+    entry."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from fastest_image_pattern_matching_tpu_torch.models import (
@@ -2960,11 +2982,21 @@ def descent_phase(fipm, dev, smi):
     pattern = fipm.learn_pattern(templ, cfg.min_reduce_area, device=dev)
     frames = flagship_batch()[0]
     batch8 = np.concatenate([frames, frames])
+    plate, o_pats, o_cfg = benchmark_plate(fipm, dev)
+    # The entry each run's chunks go through, and its kernel and plain
+    # version (the plain one takes the arguments less `integer`).
+    single = ("descent_best", ncc.descent_best, ncc.descent_best_ref)
+    stack = ("descent_best_stack", ncc.descent_best_stack,
+             ncc.descent_best_stack_ref)
     runs = {
-        "flagship": lambda: fipm.match(f_scene, f_pat, f_cfg, device=dev),
-        "Test7": lambda: fipm.match(scene, pattern, cfg, device=dev),
-        "flagship batch of 8": lambda: fipm.match_many(batch8, f_pat, f_cfg,
-                                                       device=dev)}
+        "flagship": (lambda: fipm.match(f_scene, f_pat, f_cfg, device=dev),
+                     single),
+        "Test7": (lambda: fipm.match(scene, pattern, cfg, device=dev),
+                  single),
+        "flagship batch of 8": (lambda: fipm.match_many(
+            batch8, f_pat, f_cfg, device=dev), single),
+        "ocr plate": (lambda: fipm.match_patterns(plate, o_pats, o_cfg,
+                                                  device=dev), stack)}
     entry = {"name": "descent_score", "route": "cuda",
              "source": "fastest_image_pattern_matching_tpu_torch/csrc/"
                        "descent_score.cu",
@@ -2972,11 +3004,11 @@ def descent_phase(fipm, dev, smi):
                          "operations (models/template_matcher.py:374-378)",
              "launches": {}, "shapes": {}}
     recorded = {}
-    for tag, run in runs.items():
+    for tag, (run, (name, kernel_fn, plain_fn)) in runs.items():
         run()
         torch.cuda.synchronize()
         before = profiling.counter("descent_score.launches")
-        calls = record_calls(tm, "descent_best", run)
+        calls = record_calls(tm, name, run)
         torch.cuda.synchronize()
         launches = profiling.counter("descent_score.launches") - before
         profiling.reset_spans()
@@ -2995,8 +3027,8 @@ def descent_phase(fipm, dev, smi):
                 f"chunks ({traced} launches and {chunks} chunk spans under "
                 "the profiler); every chunk must launch the kernel once")
         for args in calls:
-            got = ncc.descent_best(*args)
-            want = ncc.descent_best_ref(*args[:-1])
+            got = kernel_fn(*args)
+            want = plain_fn(*args[:-1])
             for g, w in zip(got, want):
                 if g.dtype == torch.float32:
                     g, w = g.view(torch.int32), w.view(torch.int32)
@@ -3004,33 +3036,60 @@ def descent_phase(fipm, dev, smi):
                     raise AssertionError(
                         f"[24 descent] {tag}: the kernel differs from the "
                         f"plain version on ROIs {tuple(args[0].shape)}")
-        shapes = sorted({(tuple(a[1].shape), a[6], a[7]) for a in calls},
-                        key=lambda x: -x[0][0])
+        shapes = sorted({(tuple(a[1].shape), a[-3], a[-2]) for a in calls},
+                        key=lambda x: -x[0][-2])
         entry["launches"][tag] = launches
         recorded[tag] = calls
         log(f"[24 descent] {tag}: {launches} launches, one a chunk "
             f"({chunks} fipm.descent.chunk spans under the profiler), each "
             f"bit-equal to the plain version on the card; templates, cc and "
             f"k_ang: {shapes} ({smi})")
+    read = fipm.match_patterns(plate, o_pats, o_cfg, device=dev)
+    for k, (got, p) in enumerate(zip(read, o_pats)):
+        want = tm.match_arrays(plate, p, o_cfg, device=dev)
+        for key in want:
+            g, w = np.asarray(got[key]), np.asarray(want[key])
+            if g.shape != w.shape or not np.array_equal(
+                    g.view(np.uint8), w.view(np.uint8)):
+                raise AssertionError(
+                    f"[24 descent] ocr plate: glyph {k}'s {key} differs "
+                    "from its own match_arrays on the card")
+    log(f"[24 descent] ocr plate: match_patterns equal to match_arrays of "
+        f"each of the {len(o_pats)} glyphs on the card, bit for bit; "
+        f"{sum(bool(r['valid'].any()) for r in read)} glyphs found")
+    o_shapes = [tuple(lv.templ.shape) for lv in o_pats[0].levels]
     timed = {
-        "flagship L0 chunk": next(a for a in recorded["flagship"]
-                                  if tuple(a[1].shape) == (521, 762)),
-        "Test7 chunk": recorded["Test7"][0]}
-    for tag, args in timed.items():
+        "flagship L0 chunk": (next(a for a in recorded["flagship"]
+                                   if tuple(a[1].shape) == (521, 762)),
+                              single),
+        "Test7 chunk": (recorded["Test7"][0], single),
+        "ocr L1 chunk": (next(a for a in recorded["ocr plate"]
+                              if tuple(a[1].shape[1:]) == o_shapes[1]),
+                         stack),
+        "ocr L0 chunk": (next(a for a in recorded["ocr plate"]
+                              if tuple(a[1].shape[1:]) == o_shapes[0]),
+                         stack)}
+    for tag, (args, (name, kernel_fn, plain_fn)) in timed.items():
         rois, templ_l = args[0], args[1]
-        kernel = lambda: ncc.descent_best(*args)
-        plain = lambda: ncc.descent_best_ref(*args[:-1])
+        kernel = lambda: kernel_fn(*args)
+        plain = lambda: plain_fn(*args[:-1])
         km, pm = turns_ms(kernel, plain, 50, 5)
         kdm = device_ms(kernel)
         B, H, W = rois.shape
-        h, w = templ_l.shape
-        n_bytes = 4 * (B * H * W + h * w) + B * (4 + 8 + 1 + 36)
+        h, w = templ_l.shape[-2:]
+        if templ_l.ndim == 3:  # the templates indexed, the index, the table
+            G = int(torch.unique(args[2]).numel())
+            in_bytes = 4 * (G * h * w + B + 6 * G)
+        else:
+            G = 1
+            in_bytes = 4 * h * w
+        n_bytes = 4 * B * H * W + in_bytes + B * (4 + 8 + 1 + 36)
         bms, by = bound_ms(n_bytes, 2 * B * 49 * h * w, INT8_OPS_PER_S)
         entry["shapes"][tag] = dict(shape=[B, H, W], templ=[h, w],
-                                    ms=kdm, loop_ms=km, plain_ms=pm,
-                                    bound_ms=bms, bound_by=by)
-        log(f"[24 descent] {tag}: {B} ROIs of {H}x{W}, a {h}x{w} template; "
-            f"kernel loop {km:.4f} ms, device {kdm:.4f} ms "
+                                    templates=G, ms=kdm, loop_ms=km,
+                                    plain_ms=pm, bound_ms=bms, bound_by=by)
+        log(f"[24 descent] {tag}: {B} ROIs of {H}x{W}, {G} {h}x{w} "
+            f"template(s); kernel loop {km:.4f} ms, device {kdm:.4f} ms "
             f"({100 * bms / kdm:.2f}% of bound); plain version on the card "
             f"{pm:.3f} ms; bound {bms:.4f} ms by {by} ({smi})")
     l0 = entry["shapes"]["flagship L0 chunk"]

@@ -43,6 +43,14 @@
 // best and writes the outputs. The flagship's level 0 (24 ROIs of 527x768,
 // a 521x762 template) runs as 33 x 24 blocks.
 //
+// A stack of templates of one size (the glyphs of a plan group,
+// models/batch.py::_match_group) runs as one launch too: the stack kernel
+// reads ROI b's template index and that template's row of constants, then
+// does the same block work (descent_score_block), so a descent chunk that
+// holds the candidates of many glyphs is still one launch. A launch with
+// one template takes descent_score_kernel, the same body with the template
+// and the constants as before.
+//
 // Bound: bytes. The ROIs are read once (the template is small and stays in
 // L2): 40.4 MB at the flagship's level 0, 12.1 us at 3.35 TB/s, against
 // 0.93 G int8 multiply-adds, 0.47 us at 1979 TOPS. The design spends about
@@ -147,14 +155,13 @@ __device__ __forceinline__ bool better(float a, int ia, float b, int ib) {
   return ia < ib;
 }
 
-__global__ void __launch_bounds__(kThreads, 2)
-    descent_score_kernel(const float* __restrict__ rois,
-                         const float* __restrict__ templ, int h, int w,
-                         int nq, int nr, Consts k,
-                         unsigned long long* scratch,
-                         float* __restrict__ v, int* __restrict__ xy,
-                         unsigned char* __restrict__ border,
-                         float* __restrict__ patch) {
+// The work of block (band, b): ROI b against the template at `templ`,
+// with the epilogue's constants k. Both kernels below are this body.
+__device__ __forceinline__ void descent_score_block(
+    const float* __restrict__ rois, const float* __restrict__ templ, int h,
+    int w, int nq, int nr, const Consts& k, unsigned long long* scratch,
+    float* __restrict__ v, int* __restrict__ xy,
+    unsigned char* __restrict__ border, float* __restrict__ patch) {
   extern __shared__ unsigned staged[];
   __shared__ int warp_corr[kWarps][kMap];
   __shared__ int row_s1[kStagedRows * kShifts];
@@ -307,22 +314,55 @@ __global__ void __launch_bounds__(kThreads, 2)
       patch[9 * b + 3 * r + c] = scores[(sy + r) * kShifts + sx + c];
 }
 
-// Dynamic shared memory above 48 KB has to be asked for, once per device:
-// `raised` keeps, per device, the most asked for so far, so that a launch
-// inside a CUDA graph's capture makes no such call.
-constexpr int kMaxDevices = 64;
-size_t raised[kMaxDevices];
+// One template [h, w] for every ROI, its constants by value.
+__global__ void __launch_bounds__(kThreads, 2)
+    descent_score_kernel(const float* __restrict__ rois,
+                         const float* __restrict__ templ, int h, int w,
+                         int nq, int nr, Consts k,
+                         unsigned long long* scratch,
+                         float* __restrict__ v, int* __restrict__ xy,
+                         unsigned char* __restrict__ border,
+                         float* __restrict__ patch) {
+  descent_score_block(rois, templ, h, w, nq, nr, k, scratch, v, xy, border,
+                      patch);
+}
 
-int raise_smem(size_t bytes) {
+// A stack of templates [G, h, w]: ROI b takes template templ_index[b] and
+// row templ_index[b] of the constants table [G, 6] (Consts' order).
+__global__ void __launch_bounds__(kThreads, 2)
+    descent_score_stack_kernel(const float* __restrict__ rois,
+                               const float* __restrict__ templs,
+                               const int* __restrict__ templ_index,
+                               const float* __restrict__ consts, int h,
+                               int w, int nq, int nr,
+                               unsigned long long* scratch,
+                               float* __restrict__ v, int* __restrict__ xy,
+                               unsigned char* __restrict__ border,
+                               float* __restrict__ patch) {
+  const int t = templ_index[blockIdx.y];
+  const float* c = consts + 6 * static_cast<size_t>(t);
+  const Consts k{c[0], c[1], c[2], c[3], c[4], c[5]};
+  descent_score_block(rois, templs + static_cast<size_t>(t) * h * w, h, w,
+                      nq, nr, k, scratch, v, xy, border, patch);
+}
+
+// Dynamic shared memory above 48 KB has to be asked for, once per device
+// and kernel: `raised` keeps, per kernel and device, the most asked for so
+// far, so that a launch inside a CUDA graph's capture makes no such call.
+constexpr int kMaxDevices = 64;
+size_t raised[2][kMaxDevices];
+
+template <typename Kernel>
+int raise_smem(Kernel kernel, size_t (&done)[kMaxDevices], size_t bytes) {
   if (bytes <= 48 * 1024) return 0;
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return static_cast<int>(e);
-  if (dev < kMaxDevices && raised[dev] >= bytes) return 0;
-  e = cudaFuncSetAttribute(descent_score_kernel,
+  if (dev < kMaxDevices && done[dev] >= bytes) return 0;
+  e = cudaFuncSetAttribute(kernel,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            static_cast<int>(bytes));
-  if (e == cudaSuccess && dev < kMaxDevices) raised[dev] = bytes;
+  if (e == cudaSuccess && dev < kMaxDevices) done[dev] = bytes;
   return static_cast<int>(e);
 }
 
@@ -334,27 +374,41 @@ extern "C" {
 // nr template rows a band (1 <= nr <= 16, from the wrapper's plan);
 // scratch: B * 148 zeroed 64-bit words; v [B] f32, xy [B, 2] int32, border
 // [B] bool, patch [B, 3, 3] f32; all contiguous on the current device. The
-// six f32 constants are _scores' host-rounded ones (Consts). Launches on
-// `stream` and returns cudaGetLastError() (or the error of raising the
-// shared-memory limit, or cudaErrorInvalidValue for a plan it cannot run).
-int fipm_descent_score(const float* rois, int B, const float* templ, int h,
-                       int w, int nr, float mean_c, float area_c,
+// six f32 constants are _scores' host-rounded ones (Consts); consts is then
+// null. A stack of G templates: templ [G, h, w], templ_index [B] int32 (ROI
+// b against template templ_index[b], each in [0, G)) and consts [G, 6] f32,
+// row g template g's six constants; the six scalars are then unused.
+// Launches on `stream` and returns cudaGetLastError() (or the error of
+// raising the shared-memory limit, or cudaErrorInvalidValue for a plan it
+// cannot run).
+int fipm_descent_score(const float* rois, int B, const float* templ,
+                       const int* templ_index, int h, int w, int nr,
+                       const float* consts, float mean_c, float area_c,
                        float inv_area, float norm, float eps10, float tiny,
                        unsigned long long* scratch, float* v, int* xy,
                        unsigned char* border, float* patch, void* stream) {
-  if (B < 1 || B > 65535 || h < 1 || w < 1 || nr < 1 || nr > kMaxRows)
+  if (B < 1 || B > 65535 || h < 1 || w < 1 || nr < 1 || nr > kMaxRows ||
+      (templ_index == nullptr) != (consts == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const int nq = (w + 3) / 4;
   const int bands = (h + nr - 1) / nr;
   const size_t smem = sizeof(unsigned) *
       (static_cast<size_t>(min(nr, h) + kShifts - 1) * (nq + 2) +
        static_cast<size_t>(min(nr, h)) * nq);
-  const int e = raise_smem(smem);
-  if (e != 0) return e;
-  const Consts k{mean_c, area_c, inv_area, norm, eps10, tiny};
-  descent_score_kernel<<<dim3(bands, B), kThreads, smem,
-                         static_cast<cudaStream_t>(stream)>>>(
-      rois, templ, h, w, nq, nr, k, scratch, v, xy, border, patch);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (templ_index == nullptr) {
+    const int e = raise_smem(descent_score_kernel, raised[0], smem);
+    if (e != 0) return e;
+    const Consts k{mean_c, area_c, inv_area, norm, eps10, tiny};
+    descent_score_kernel<<<dim3(bands, B), kThreads, smem, s>>>(
+        rois, templ, h, w, nq, nr, k, scratch, v, xy, border, patch);
+  } else {
+    const int e = raise_smem(descent_score_stack_kernel, raised[1], smem);
+    if (e != 0) return e;
+    descent_score_stack_kernel<<<dim3(bands, B), kThreads, smem, s>>>(
+        rois, templ, templ_index, consts, h, w, nq, nr, scratch, v, xy,
+        border, patch);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

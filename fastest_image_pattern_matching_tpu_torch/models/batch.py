@@ -20,8 +20,12 @@ check (it may not be smaller than the batch).
 Glyph-batched matching (match_patterns) is the same idea along the
 template axis: the reference's OCR demo loops 36 glyph patterns over one
 source (MatchToolDlg.cpp:714-771); here the source pyramid is built once
-per call and the sweep canvases once per group of same-shaped patterns,
-then each pattern runs the rest of the pipeline on them.
+per call, and the patterns of one plan group run as one stacked pipeline,
+the pattern the row axis of every stage where the frame was (build_stages
+with a StackLevel per level): one upload of the group's templates, one
+score-map correlation and one peak extraction for all of them, one
+descent (one descent-score launch a chunk on the card, each ROI against
+its own template) and one finalize over the group's rows.
 """
 
 from __future__ import annotations
@@ -37,9 +41,9 @@ from ..types import LearnedPattern, MatchResult
 from ..utils.device import resolve_device
 from ..utils.profiling import count, span
 from .template_matcher import (_check_area, _finalized, _frames,
-                               _match_frames, _pack_result, _pattern_inputs,
-                               _plan_inputs, _prep_src, _results, _stacked,
-                               build_stages, upload_frames)
+                               _make_plan, _match_frames, _pack_result,
+                               _prep_src, _results, _stack_inputs, _stacked,
+                               _sweep_inputs, build_stages, upload_frames)
 
 
 def _next_bucket(n: int) -> int:
@@ -138,12 +142,16 @@ class BatchMatcher:
 def _pattern_groups(patterns: Sequence[LearnedPattern]
                     ) -> Dict[tuple, List[int]]:
     """Pattern indices grouped by (pyramid shapes, flat-template flags,
-    border color), which fix the plan."""
+    border color), which fix the plan, and by the levels' u8-valued
+    flags, which decide a stacked descent's route: a template off the
+    descent-score kernel's integer route sends only its own group to the
+    plain version."""
     groups: Dict[tuple, List[int]] = {}
     for i, p in enumerate(patterns):
         key = (tuple(p.shapes),
                tuple(bool(lv.result_equal1) for lv in p.levels),
-               p.border_color)
+               p.border_color,
+               tuple(bool(lv.u8_valued) for lv in p.levels))
         groups.setdefault(key, []).append(i)
     return groups
 
@@ -160,29 +168,24 @@ def _source_pyramid(src, patterns: Sequence[LearnedPattern],
 
 def _match_group(pyr, src_hw, group: Sequence[LearnedPattern],
                  cfg: MatchConfig, dev):
-    """Patterns of one plan against the source pyramid, the sweep canvases
-    computed once for all, up to their descended candidates. Returns the
-    plan and the group's finalize for _finalized: nms_cap -> the packed
-    results [G, max_pos + 1, 13] on `dev`."""
-    plan, _, (_, *sweep) = _plan_inputs(src_hw, group[0], cfg, dev)
-    canvases = None
-    runs = []
-    for p in group:
-        stats, templs = _pattern_inputs(p, dev)
-        st = build_stages(plan, stats, dev)
-        if canvases is None:
-            canvases = st.sweep_canvases(pyr[plan.top], sweep[0])
-        with span("fipm.patterns.pattern"):
-            runs.append((st, st.candidates(pyr[:plan.top + 1], templs,
-                                           *sweep, canvases=canvases)))
+    """The G patterns of one plan against the source pyramid as one
+    stacked pipeline, up to their descended candidates (the span
+    fipm.patterns.pattern; the counter patterns.stacked adds G). Returns
+    the plan and the group's finalize for _finalized: nms_cap -> the
+    packed results [G, max_pos + 1, 13] on `dev` (again in the span
+    fipm.patterns.pattern)."""
+    plan = _make_plan(tuple(src_hw), group[0], cfg)
+    stats, templs = _stack_inputs(group, dev)
+    st = build_stages(plan, stats, dev)
+    count("patterns.stacked", len(group))
+    with span("fipm.patterns.pattern"):
+        cands = st.candidates(pyr[:plan.top + 1], templs,
+                              *_sweep_inputs(plan, dev))
 
     def finalize(nms_cap):
-        packed = []
-        for st, cands in runs:
-            with span("fipm.patterns.pattern"):
-                packed.append(_pack_result(st.finalize(*cands, 1, nms_cap),
-                                           cfg.max_pos))
-        return torch.cat(packed)
+        with span("fipm.patterns.pattern"):
+            return _pack_result(st.finalize(*cands, len(group), nms_cap),
+                                cfg.max_pos)
     return plan, finalize
 
 
@@ -195,18 +198,18 @@ def match_patterns(src, patterns: Sequence[LearnedPattern],
 
     The source pyramid is built once per call. Patterns are grouped by
     (pyramid shapes, flat-template flags, border color), which fix the
-    plan; a group computes its sweep canvases once, each pattern runs
-    the rest of the pipeline on them, and the group's results come back
-    in one host copy under the NMS-cap rule of template_matcher.py::
-    _finalized. The JAX package warns when the
-    patterns fall into many groups, because each group costs it one
-    compile; eager PyTorch compiles nothing, and a group costs only its
-    own sweep warp, so the port does not warn.
+    plan, and by their levels' u8-valued flags; a group runs as one
+    stacked pipeline (_match_group), and its results come back in one
+    host copy under the NMS-cap rule of template_matcher.py::_finalized.
+    The JAX package warns when the patterns fall into many groups, because
+    each group costs it one compile; eager PyTorch compiles nothing, and a
+    group costs one pipeline's launches, so the port does not warn.
 
-    The call is the span fipm.match_patterns, and each pattern's stages
+    The call is the span fipm.match_patterns, and each group's stages
     (its candidates, and again its finalize) a span
     fipm.patterns.pattern; the counters patterns.groups and patterns.run
-    add the call's plan groups and patterns.
+    add the call's plan groups and patterns, patterns.stacked the
+    patterns that ran stacked (all of them).
     """
     cfg = cfg or MatchConfig()
     dev = resolve_device(device)

@@ -37,7 +37,8 @@ from ..utils.chunking import chunked_map
 from ..utils.device import resolve_device
 from ..utils.profiling import span
 from ..ops.pyramid import build_pyramid
-from ..ops.ncc import descent_best, ncc_score_map
+from ..ops.ncc import (descent_best, descent_best_stack, ncc_score_map,
+                       ncc_score_stack, score_constants)
 from ..ops.peaks import extract_peaks
 from ..ops.nms import filter_overlaps, rotated_rect_corners
 from ..ops.subpixel import subpixel_refine
@@ -283,6 +284,20 @@ def narrowed(cands, n_frames: int, cl: int) -> torch.Tensor:
     return _rows(grp, o).reshape(-1)
 
 
+@dataclasses.dataclass(frozen=True)
+class StackLevel:
+    """One pyramid level's stats of a stack of G templates of one size
+    (a plan group of models/batch.py::_match_group): each template's six
+    epilogue constants (ops/ncc.py::score_constants) as a [G, 6] f32 table
+    on the device, and what the stack shares: whether the level is flat
+    (result_equal1; a plan group holds templates alike in that) and
+    whether every template is u8-valued (the descent-score kernel's
+    integer route)."""
+    consts: torch.Tensor
+    result_equal1: bool
+    u8_valued: bool
+
+
 def _prep_src(src: torch.Tensor, cfg: MatchConfig) -> torch.Tensor:
     """Input normalisation: u8-contract clip and bitwise-not. The JAX
     package clips the source to [0, 255] when its correlation runs in
@@ -307,6 +322,15 @@ def build_stages(plan: _Plan, stats, device, narrow_hook=None):
     Python values. Returns a namespace of the stage functions; _run composes
     them.
 
+    A stack of G templates of one size against one frame (stats: a
+    StackLevel per level, templates [G, h_l, w_l]) runs the same stages
+    with the template as the row axis where the frame was: G score maps a
+    canvas and one peak launch for all, G rows of candidates, each
+    carrying its template's row as its frame index does, one descent over
+    all of them (a chunk's ROIs each scored against their own template,
+    one descent-score launch on the card), and finalize over the G rows.
+    Every row samples the one frame.
+
     narrow_hook: optional fn(ptLT, ang, score, alive, fidx) -> alive, used
     by the sharded matcher (parallel/matcher.py), whose ranks each hold a
     part of every frame's candidates: with cfg.narrow_candidates it keeps
@@ -315,6 +339,9 @@ def build_stages(plan: _Plan, stats, device, narrow_hook=None):
     rank and the kept set is the unsharded one."""
     dev = torch.device(device)
     cfg = plan.cfg
+    stacked = isinstance(stats[0], StackLevel)
+    # Candidate rows a frame: the stack's templates, or the frame alone.
+    n_templ = stats[0].consts.shape[0] if stacked else 1
     thr = torch.tensor(plan.layer_scores, dtype=torch.float32, device=dev)
     top, stop = plan.top, plan.stop
     th_t, tw_t = plan.templ_shapes[top]
@@ -324,7 +351,7 @@ def build_stages(plan: _Plan, stats, device, narrow_hook=None):
     k_ang = plan.k_ang
     src_sizes = geometry.pyramid_sizes(plan.src_hw, top)
     identity_sweep = (len(plan.angles) == 1 and plan.angles[0] == 0.0)
-    sweep_chunk = max(1, _CHUNK_BUDGET_ELEMS // (Hc * Wc * 4))
+    sweep_chunk = max(1, _CHUNK_BUDGET_ELEMS // (Hc * Wc * 4 * n_templ))
 
     def sweep_bounds(n_maps):
         return [(lo, min(n_maps, lo + sweep_chunk))
@@ -348,27 +375,14 @@ def build_stages(plan: _Plan, stats, device, narrow_hook=None):
         return (inv_mats.repeat(n_frames, 1, 1),
                 torch.arange(n_frames * A, device=dev) // A)
 
-    def sweep_canvases(src_top, inv_mats):
-        """Every frame's top-layer canvases, in the sweep's chunks: they
-        depend on the plan, not on the template, so templates of one plan
-        can share them (models/batch.py::match_patterns)."""
-        with span("fipm.sweep"):
-            maps, fidx = sweep_layout(src_top.shape[0], inv_mats)
-            out = []
-            for lo, hi in sweep_bounds(maps.shape[0]):
-                with span("fipm.sweep.chunk"):
-                    out.append(sweep_canvas(src_top, maps[lo:hi],
-                                            fidx[lo:hi]))
-            return out
-
-    def sweep_maps(src_top, templ_top, inv_mats, valid_wh, canvases=None):
+    def sweep_maps(src_top, templ_top, inv_mats, valid_wh):
         """Per-canvas score-map peaks: frames [N, H, W], maps [A, 2, 3],
-        [A, 2] -> vals [N, A, K], locs [N, A, K, 2]. One warp launch per
-        chunk of the N*A canvases (map i on frame i // A), one score map
-        and K peak rounds for the chunk. canvases: sweep_canvases' chunks,
-        when computed already."""
+        [A, 2] -> vals [N, A, K], locs [N, A, K, 2] (a stack: one frame,
+        [G, A, K] and [G, A, K, 2]). One warp launch per chunk of the N*A
+        canvases (map i on frame i // A), one score map a canvas and
+        template, and one peak extraction (K rounds) for the chunk."""
         with span("fipm.sweep"):
-            mean, norm, inv_area, equal1, _ = stats[top]
+            lv = stats[top]
             N, A = src_top.shape[0], inv_mats.shape[0]
             Ho, Wo = Hc - th_t + 1, Wc - tw_t + 1
             xs = torch.arange(Wo, dtype=torch.int32,
@@ -378,22 +392,29 @@ def build_stages(plan: _Plan, stats, device, narrow_hook=None):
             maps, fidx = sweep_layout(N, inv_mats)
             vwhs = valid_wh.repeat(N, 1)
             vals, locs = [], []
-            for c, (lo, hi) in enumerate(sweep_bounds(N * A)):
+            for lo, hi in sweep_bounds(N * A):
                 with span("fipm.sweep.chunk"):
-                    canv = (canvases[c] if canvases is not None else
-                            sweep_canvas(src_top, maps[lo:hi], fidx[lo:hi]))
-                    smap = ncc_score_map(canv, templ_top, mean, norm,
-                                         inv_area, equal1)
+                    canv = sweep_canvas(src_top, maps[lo:hi], fidx[lo:hi])
                     vwh = vwhs[lo:hi]
                     ok = ((xs <= (vwh[:, 0] - tw_t)[:, None, None])
                           & (ys <= (vwh[:, 1] - th_t)[:, None, None]))
-                    smap = torch.where(ok, smap, -1.0)
+                    if stacked:  # [m, G, Ho, Wo]: G maps a canvas
+                        smap = ncc_score_stack(canv, templ_top, lv.consts,
+                                               lv.result_equal1)
+                        smap = torch.where(ok[:, None], smap, -1.0
+                                           ).reshape(-1, Ho, Wo)
+                    else:
+                        smap = ncc_score_map(canv, templ_top, *lv[:4])
+                        smap = torch.where(ok, smap, -1.0)
                     v, l = extract_peaks(smap, K, (tw_t, th_t),
                                          cfg.max_overlap)
                 vals.append(v)
                 locs.append(l)
-            return (torch.cat(vals).reshape(N, A, K),
-                    torch.cat(locs).reshape(N, A, K, 2))
+            vals, locs = torch.cat(vals), torch.cat(locs)
+            if stacked:  # the canvas-major maps as a row a template
+                return (vals.reshape(A, n_templ, K).transpose(0, 1),
+                        locs.reshape(A, n_templ, K, 2).transpose(0, 1))
+            return vals.reshape(N, A, K), locs.reshape(N, A, K, 2)
 
     def select_candidates(vals, locs, trans, angles_arr):
         """Per frame: flatten the per-angle peaks, threshold, top-C (the
@@ -414,10 +435,14 @@ def build_stages(plan: _Plan, stats, device, narrow_hook=None):
 
     def descend_layer(l, src_l, templ_l, ptLT, ang, score, alive, fidx):
         """One pyramid-descent step for the candidates of every frame
-        (flat [M], candidate i on frame fidx[i]), in chunks of candidates;
-        the caller sorts alive-first so dead chunks at the end cost
-        nothing."""
-        mean, norm, inv_area, equal1, u8_templ = stats[l]
+        (flat [M], candidate i on frame fidx[i]; of a stack, on template
+        fidx[i] and the one frame), in chunks of candidates; the caller
+        sorts alive-first so dead chunks at the end cost nothing."""
+        if stacked:
+            lv = stats[l]
+            equal1, u8_templ = lv.result_equal1, lv.u8_valued
+        else:
+            mean, norm, inv_area, equal1, u8_templ = stats[l]
         # The descent-score kernel serves the chunks on the card where its
         # integer sums are exact: the ROIs hold integers in [0, 255] when
         # the warps round (quantize_warp) frames held to [0, 255] (host
@@ -451,6 +476,8 @@ def build_stages(plan: _Plan, stats, device, narrow_hook=None):
         if k_ang == 1:
             src_l_padded = torch.nn.functional.pad(
                 src_l, (pad_w, pad_w, pad_h, pad_h))
+            if stacked:  # the one frame as a row a template (a view)
+                src_l_padded = src_l_padded.expand(n_templ, -1, -1)
 
         def _translated_rois(p2, f):
             # ROI dst (x, y) samples src at (x + p2x - 3, y + p2y - 3).
@@ -478,7 +505,9 @@ def build_stages(plan: _Plan, stats, device, narrow_hook=None):
 
         def rois(p2, a_flat, f):
             """The candidates' ROIs [cc * k_ang, h + 6, w + 6] at their
-            angles a_flat."""
+            angles a_flat, ROI b on row f[b] (f: [cc * k_ang]). A stack's
+            rows are its templates on the one frame, whose index the warp
+            drops (ops/warp.py::warp_affine_dispatch)."""
             if k_ang == 1:
                 with span("fipm.descent.warp"):
                     return _translated_rois(p2, f)
@@ -490,16 +519,21 @@ def build_stages(plan: _Plan, stats, device, narrow_hook=None):
             with span("fipm.descent.warp"):
                 return warp_affine_dispatch(
                     src_l, invm.contiguous(), roi_hw, 0.0,
-                    quantize=cfg.quantize_warp,
-                    src_index=torch.repeat_interleave(f, k_ang))
+                    quantize=cfg.quantize_warp, src_index=f)
 
         def cand_chunk(args):
             with span("fipm.descent.chunk"):
                 p2, aa, f = args  # [cc, 2], [cc, k_ang], [cc]
                 cc = p2.shape[0]
-                roi = rois(p2, aa.reshape(cc * k_ang), f)
-                return descent_best(roi, templ_l, mean, norm, inv_area,
-                                    equal1, cc, k_ang, integer)
+                # Each ROI's row: its frame, of a stack its template.
+                fk = f if k_ang == 1 else torch.repeat_interleave(f, k_ang)
+                roi = rois(p2, aa.reshape(cc * k_ang), fk)
+                if not stacked:
+                    return descent_best(roi, templ_l, mean, norm, inv_area,
+                                        equal1, cc, k_ang, integer)
+                return descent_best_stack(roi, templ_l, fk.to(torch.int32),
+                                          lv.consts, equal1, cc, k_ang,
+                                          integer)
 
         chunk = _descend_chunk(roi_hw, th_l * tw_l, k_ang)
         v, xy, border, patch = chunked_map(cand_chunk, (ptLT2, angs, fidx),
@@ -596,11 +630,11 @@ def build_stages(plan: _Plan, stats, device, narrow_hook=None):
         """Pyramid descent over layers l_from..l_to (inclusive, downward)
         of the flat candidates of every frame."""
         cands = (ptLT, ang, score, alive, fidx)
+        n_rows = n_templ * pyr[l_to].shape[0]
         with span("fipm.descent"):
             for l in range(l_from, l_to - 1, -1):
                 with span(_LEVEL_SPANS[l]):
-                    cands = descend_level(l, pyr, templs, cands,
-                                          pyr[l_to].shape[0])
+                    cands = descend_level(l, pyr, templs, cands, n_rows)
         return cands
 
     def descend(pyr, templs, pt, ang, score, alive):
@@ -663,20 +697,17 @@ def build_stages(plan: _Plan, stats, device, narrow_hook=None):
     def prep_src(src):
         return _prep_src(src, cfg)
 
-    def candidates(pyr, templs, inv_mats, trans, valid_wh, angles_arr,
-                   canvases=None):
+    def candidates(pyr, templs, inv_mats, trans, valid_wh, angles_arr):
         """Sweep, selection and descent on a built source pyramid: the
-        flat candidates of every frame that finalize takes. canvases:
-        sweep_canvases' chunks, when computed already (models/batch.py::
-        match_patterns shares them among the templates of one plan)."""
-        vals, locs = sweep_maps(pyr[top], templs[top], inv_mats, valid_wh,
-                                canvases)
+        flat candidates of every frame (of a stack: every template) that
+        finalize takes."""
+        vals, locs = sweep_maps(pyr[top], templs[top], inv_mats, valid_wh)
         pt, ang, score, alive = select_candidates(vals, locs, trans,
                                                   angles_arr)
         return descend(pyr, templs, pt, ang, score, alive)
 
     return types.SimpleNamespace(
-        sweep_canvases=sweep_canvases, sweep_maps=sweep_maps,
+        sweep_maps=sweep_maps,
         select_candidates=select_candidates, descend_range=descend_range,
         unrotate=unrotate, descend=descend,
         debug_candidates=debug_candidates, finalize=finalize,
@@ -763,13 +794,41 @@ def _pattern_inputs(pattern: LearnedPattern, dev):
     return stats, templs
 
 
+def _sweep_inputs(plan: _Plan, dev) -> Tuple[torch.Tensor, ...]:
+    """The sweep arrays of _top_sweep_arrays on `dev`."""
+    return tuple(torch.as_tensor(a, device=dev)
+                 for a in _top_sweep_arrays(plan))
+
+
 def _plan_inputs(src_hw, pattern: LearnedPattern, cfg: MatchConfig, dev):
     """Plan, stats, template pyramid and sweep arrays on `dev`."""
     plan = _make_plan(tuple(src_hw), pattern, cfg)
     stats, templs = _pattern_inputs(pattern, dev)
-    arrays = tuple(torch.as_tensor(a, device=dev)
-                   for a in _top_sweep_arrays(plan))
-    return plan, stats, (templs,) + arrays
+    return plan, stats, (templs,) + _sweep_inputs(plan, dev)
+
+
+def _stack_inputs(patterns: List[LearnedPattern], dev):
+    """The stats (a StackLevel per level) and the template stacks
+    [G, h_l, w_l] of G patterns of one plan on `dev`: every level's
+    templates and constants table (ops/ncc.py::score_constants, on the
+    host as for one pattern) go up in one host-to-device copy."""
+    levels = list(zip(*(p.levels for p in patterns)))
+    host = []
+    for lvs in levels:
+        h, w = lvs[0].templ.shape
+        host += [np.stack([np.asarray(lv.templ, np.float32) for lv in lvs]),
+                 np.array([score_constants(lv.mean, lv.norm, lv.inv_area,
+                                           float(h * w)) for lv in lvs],
+                          np.float32)]
+    flat = torch.from_numpy(np.concatenate(
+        [a.reshape(-1) for a in host])).to(dev)
+    on_dev = [v.view(a.shape) for v, a in
+              zip(torch.split(flat, [a.size for a in host]), host)]
+    stats = tuple(StackLevel(consts=c,
+                             result_equal1=bool(lvs[0].result_equal1),
+                             u8_valued=all(lv.u8_valued for lv in lvs))
+                  for lvs, c in zip(levels, on_dev[1::2]))
+    return stats, tuple(on_dev[::2])
 
 
 def _check_area(pattern: LearnedPattern, src_hw) -> None:

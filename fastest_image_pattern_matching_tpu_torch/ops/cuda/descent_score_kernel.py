@@ -9,7 +9,11 @@ shiftmm route, then roi_best), launches about 115 kernels a chunk from
 Python. Here one launch turns a chunk's ROIs into each ROI's best, with
 exact integer sums, bit-equal to the plain version. ops/ncc.py::
 descent_best sends CUDA tensors here when the ROIs and the template hold
-integers in [0, 255], and everything else to the plain version.
+integers in [0, 255], and everything else to the plain version;
+ops/ncc.py::descent_best_stack sends a chunk whose ROIs belong to a stack
+of templates (a glyph group, models/batch.py::_match_group) here in one
+launch as well, with each ROI's template index and the stack's table of
+constants.
 
 The library is built with nvcc at the first launch, never on import.
 """
@@ -17,7 +21,7 @@ The library is built with nvcc at the first launch, never on import.
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional
 
 import torch
 
@@ -43,9 +47,9 @@ def _lib() -> ctypes.CDLL:
     if _LIB is None:
         lib = build.load(SOURCE)
         lib.fipm_descent_score.argtypes = (
-            [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p] +
-            [ctypes.c_int] * 3 + [ctypes.c_float] * 6 +
-            [ctypes.c_void_p] * 6)
+            [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 2 +
+            [ctypes.c_int] * 3 + [ctypes.c_void_p] +
+            [ctypes.c_float] * 6 + [ctypes.c_void_p] * 6)
         lib.fipm_descent_score.restype = ctypes.c_int
         lib.fipm_descent_score_error_string.argtypes = [ctypes.c_int]
         lib.fipm_descent_score_error_string.restype = ctypes.c_char_p
@@ -74,8 +78,9 @@ def plan(h: int, w: int) -> int:
     return rows
 
 
-def descent_score_cuda(rois: torch.Tensor, templ: torch.Tensor,
-                       consts: Tuple[float, ...], cc: int, k_ang: int):
+def descent_score_cuda(rois: torch.Tensor, templ: torch.Tensor, consts,
+                       cc: int, k_ang: int,
+                       templ_index: Optional[torch.Tensor] = None):
     """Each ROI's best on the current stream: rois [cc * k_ang, h + 6,
     w + 6] and templ [h, w], f32 holding integers in [0, 255], and the
     epilogue's six f32 constants of the template's stats
@@ -83,11 +88,19 @@ def descent_score_cuda(rois: torch.Tensor, templ: torch.Tensor,
     [cc, k_ang, 2] int32, border [cc, k_ang] bool, patch [cc, k_ang, 3, 3]
     f32), exactly as ops/ncc.py::descent_best_ref; raises on anything the
     kernel does not take. Reads nothing back from the card. Each launch
-    counts as "descent_score.launches" (utils/profiling.py::counter)."""
-    if rois.ndim != 3 or templ.ndim != 2:
-        raise ValueError(f"rois must be [B, h + 6, w + 6] and templ [h, w], "
-                         f"got {tuple(rois.shape)} and {tuple(templ.shape)}")
-    h, w = templ.shape
+    counts as "descent_score.launches" (utils/profiling.py::counter).
+
+    templ_index: for a stack of G templates templ [G, h, w], ROI b's
+    template, a contiguous int32 [cc * k_ang] on the ROIs' card; consts is
+    then the [G, 6] f32 table on that card whose row g holds template g's
+    six constants. The index is the caller's (each entry in [0, G)): it is
+    not read back to be checked."""
+    stacked = templ_index is not None
+    if rois.ndim != 3 or templ.ndim != (3 if stacked else 2):
+        raise ValueError(f"rois must be [B, h + 6, w + 6] and templ "
+                         f"{'[G, h, w]' if stacked else '[h, w]'}, got "
+                         f"{tuple(rois.shape)} and {tuple(templ.shape)}")
+    h, w = templ.shape[-2:]
     B = rois.shape[0]
     if tuple(rois.shape[1:]) != (h + 6, w + 6) or B != cc * k_ang:
         raise ValueError(f"rois {tuple(rois.shape)} are not {cc} x {k_ang} "
@@ -97,6 +110,8 @@ def descent_score_cuda(rois: torch.Tensor, templ: torch.Tensor,
                         f"{rois.dtype} and {templ.dtype}")
     if not (rois.is_contiguous() and templ.is_contiguous()):
         raise ValueError("descent_score_cuda takes contiguous tensors")
+    if stacked:
+        _check_stack(templ_index, consts, B, templ.shape[0], rois.device)
     if not (rois.is_cuda and templ.device == rois.device):
         raise ValueError(f"descent_score_cuda needs both tensors on one CUDA "
                          f"device, got {rois.device} and {templ.device}")
@@ -112,9 +127,14 @@ def descent_score_cuda(rois: torch.Tensor, templ: torch.Tensor,
         return v, xy, border, patch
     scratch = torch.zeros(B * SCRATCH_WORDS, dtype=torch.int64, device=dev)
     lib = _LIB or _lib()
+    if stacked:
+        index, table, scalars = templ_index.data_ptr(), consts.data_ptr(), \
+            (0.0,) * 6
+    else:
+        index, table, scalars = None, None, consts
     err = launch.launch(
         lib.fipm_descent_score, dev, rois.data_ptr(), B, templ.data_ptr(),
-        h, w, rows, *consts,
+        index, h, w, rows, table, *scalars,
         scratch.data_ptr(), v.data_ptr(), xy.data_ptr(), border.data_ptr(),
         patch.data_ptr())
     if err != 0:
@@ -122,3 +142,17 @@ def descent_score_cuda(rois: torch.Tensor, templ: torch.Tensor,
                            + lib.fipm_descent_score_error_string(err).decode())
     count("descent_score.launches")
     return v, xy, border, patch
+
+
+def _check_stack(templ_index: torch.Tensor, consts: torch.Tensor, B: int,
+                 G: int, dev: torch.device) -> None:
+    """A stacked launch's index and constants table: their dtype, shape,
+    layout and device only (no host read)."""
+    for name, x, dtype, shape in (("templ_index", templ_index, torch.int32,
+                                   (B,)),
+                                  ("consts", consts, torch.float32, (G, 6))):
+        if not (torch.is_tensor(x) and x.dtype == dtype
+                and tuple(x.shape) == shape and x.is_contiguous()
+                and x.device == dev):
+            raise ValueError(f"{name} must be a contiguous {dtype} "
+                             f"{list(shape)} on {dev}")

@@ -20,7 +20,8 @@ takes the route JAX takes; its conv/fft crossover is the JAX package's
 operation-count estimate, not a crossover measured on the card (PERF.md):
   * shiftmm: one f64 matmul against all shifted template copies, for the
     7x7 descent maps (Ho*Wo <= 512); on the card, the descent's integer
-    ROIs skip it: descent_best sends them to the descent-score kernel
+    ROIs skip it: descent_best (descent_best_stack for a stack of
+    templates) sends them to the descent-score kernel
     (ops/cuda/descent_score_kernel.py), which scores them and picks each
     map's best in one launch;
   * tiled: large maps with small templates (Ho*Wo > 65536, 2 <= w <= 129,
@@ -33,6 +34,10 @@ operation-count estimate, not a crossover measured on the card (PERF.md):
     exact on integer inputs of any template size on every device; an f32
     convolution is not once a partial sum passes 2^24 (90x100 templates on
     full-range input move a score by 6e-5).
+
+A stack of templates of one size (ncc_score_stack, a glyph group's sweep)
+takes the same route: one correlation for the whole stack on the exact
+routes (conv, shiftmm), template by template on the others.
 """
 
 from __future__ import annotations
@@ -78,34 +83,40 @@ def window_sums(x: torch.Tensor, hw: Tuple[int, int]) -> torch.Tensor:
 def ccorr_conv(canvases_c: torch.Tensor, templ_c: torch.Tensor
                ) -> torch.Tensor:
     """Raw centred cross-correlation [B, H, W] x [h, w] -> [B, Ho, Wo] as
-    one f64 convolution, rounded to f32 once. Exact on integer inputs
-    (every sum below 2^53) whatever the summation order, so the same on
-    the card and on the CPU."""
-    out = F.conv2d(canvases_c.to(torch.float64)[:, None],
-                   templ_c.to(torch.float64)[None, None])[:, 0]
-    return out.to(torch.float32)
+    one f64 convolution, rounded to f32 once; a stack of templates
+    [G, h, w] -> [B, G, Ho, Wo], one output channel a template. Exact on
+    integer inputs (every sum below 2^53) whatever the summation order,
+    so the same on the card and on the CPU."""
+    c = canvases_c.to(torch.float64)[:, None]
+    t = templ_c.to(torch.float64)
+    if templ_c.ndim == 2:
+        return F.conv2d(c, t[None, None])[:, 0].to(torch.float32)
+    return F.conv2d(c, t[:, None]).to(torch.float32)
 
 
 def ccorr_shiftmm(canvases_c: torch.Tensor, templ_c: torch.Tensor
                   ) -> torch.Tensor:
     """Centred cross-correlation for small output grids as one matmul:
     score[b, s] = <roi[b], template shifted by s>, over all Ho*Wo shifts.
+    templ_c [h, w] -> [B, Ho, Wo]; a stack of templates [G, h, w] ->
+    [B, G, Ho, Wo], the shifts of every template in the one matmul.
 
     The matmul runs in f64 and is rounded to f32 once: exact on integer
     inputs (every sum below 2^53), so a candidate's score does not depend
-    on how many ROIs share the matmul, whose f32 summation order on the
-    card follows its shape (the batch of frames and the alive chunks
-    change that)."""
+    on how many ROIs or templates share the matmul, whose f32 summation
+    order on the card follows its shape (the batch of frames and the alive
+    chunks change that)."""
     B, H, W = canvases_c.shape
-    h, w = templ_c.shape
+    h, w = templ_c.shape[-2:]
+    lead = tuple(templ_c.shape[:-2])
     Ho, Wo = H - h + 1, W - w + 1
-    tsh = canvases_c.new_zeros((Ho * Wo, H, W), dtype=torch.float64)
+    tsh = canvases_c.new_zeros(lead + (Ho * Wo, H, W), dtype=torch.float64)
     for dy in range(Ho):
         for dx in range(Wo):
-            tsh[dy * Wo + dx, dy:dy + h, dx:dx + w] = templ_c
+            tsh[..., dy * Wo + dx, dy:dy + h, dx:dx + w] = templ_c
     out = torch.matmul(canvases_c.reshape(B, H * W).to(torch.float64),
-                       tsh.reshape(Ho * Wo, H * W).T)
-    return out.reshape(B, Ho, Wo).to(torch.float32)
+                       tsh.reshape(-1, H * W).T)
+    return out.reshape((B,) + lead + (Ho, Wo)).to(torch.float32)
 
 
 # The plain version of the correlation kernel is the exact conv route.
@@ -116,7 +127,10 @@ def ccorr_tiled(canvases_c: torch.Tensor, templ_c: torch.Tensor
                 ) -> torch.Tensor:
     """The correlation of the large-map regime: the hand-written CUDA
     kernel for tensors on the card, its plain version for tensors on the
-    CPU. Both raise for a template the kernel does not take."""
+    CPU. Both raise for a template the kernel does not take. A stack of
+    templates [G, h, w] runs template by template."""
+    if templ_c.ndim == 3:
+        return torch.stack([ccorr_tiled(canvases_c, t) for t in templ_c], 1)
     if canvases_c.is_cuda or templ_c.is_cuda:
         return corr_kernel.ccorr_valid_cuda(canvases_c, templ_c)
     corr_kernel.check_eligible(*templ_c.shape)
@@ -129,7 +143,10 @@ def ccorr_fft(canvases_c: torch.Tensor, templ_c: torch.Tensor
 
     A circular FFT of the canvas size gives the valid-mode correlation:
     the wraparound only touches outputs beyond (H-h+1, W-w+1), which are
-    cut away. Not bit-exact (~1e-7 relative)."""
+    cut away. Not bit-exact (~1e-7 relative). A stack of templates
+    [G, h, w] runs template by template."""
+    if templ_c.ndim == 3:
+        return torch.stack([ccorr_fft(canvases_c, t) for t in templ_c], 1)
     B, H, W = canvases_c.shape
     h, w = templ_c.shape
     fs = torch.fft.rfft2(canvases_c, s=(H, W))
@@ -179,39 +196,65 @@ def ncc_score_map(
     "tiledband", or "conv" for a template the kernel does not take) or
     "auto" (auto_method).
     """
-    with span("fipm.ncc"):
-        return _score_map(canvases, templ, templ_mean, templ_norm, inv_area,
-                          result_equal1, method)
-
-
-def _score_map(canvases, templ, templ_mean, templ_norm, inv_area,
-               result_equal1, method):
     h, w = templ.shape
-    B, H, W = canvases.shape
-    Ho, Wo = H - h + 1, W - w + 1
-    if result_equal1:
-        return canvases.new_ones((B, Ho, Wo))
+    with span("fipm.ncc"):
+        return _score_map(canvases, templ, score_constants(
+            templ_mean, templ_norm, inv_area, float(h * w)), result_equal1,
+            method)
 
-    area = float(h * w)
-    sc = canvases - 128.0
-    tc = templ - 128.0
 
+def _method(method: str, H: int, W: int, h: int, w: int) -> str:
+    """ncc_score_map's `method` as the name of a correlation route."""
     if method == "auto":
         method = auto_method(H, W, h, w)
     elif method == "banded":
         method = "tiledband" if corr_kernel.eligible(h, w) else "conv"
-    correlate = _CORRELATIONS.get(method)
-    if correlate is None:
+    if method not in _CORRELATIONS:
         raise ValueError(f"unknown correlation method {method!r} (expected "
                          "auto|conv|shiftmm|tiledband|banded|fft)")
+    return method
+
+
+def _score_map(canvases, templ, consts, result_equal1, method):
+    """ncc_score_map with the epilogue's constants (score_constants). A
+    stack of templates templ [G, h, w] takes consts as a [G, 6] f32 tensor
+    on the canvases' device (row g template g's) and gives every canvas's
+    G maps [B, G, Ho, Wo]: the window sums depend on the template's size
+    alone and run once, the correlation takes the stack as it takes one
+    template, and the epilogue reads each template's constants as f32
+    tensors, the same values. Map g equals the map of template g alone
+    bit for bit on integer inputs."""
+    h, w = templ.shape[-2:]
+    lead = tuple(templ.shape[:-2])
+    B, H, W = canvases.shape
+    Ho, Wo = H - h + 1, W - w + 1
+    if result_equal1:
+        return canvases.new_ones((B,) + lead + (Ho, Wo))
+
+    sc = canvases - 128.0
+    tc = templ - 128.0
+    correlate = _CORRELATIONS[_method(method, H, W, h, w)]
     with span("fipm.ncc.corr"):
         ccorr_c = correlate(sc, tc)
     with span("fipm.ncc.sums"):
         s1c = window_sums(sc, (h, w))
         s2c = window_sums(sc * sc, (h, w))
+    if lead:
+        s1c, s2c = s1c[:, None], s2c[:, None]
+        consts = consts.T.reshape(6, lead[0], 1, 1).unbind(0)
     with span("fipm.ncc.score"):
-        return _scores(ccorr_c, s1c, s2c, score_constants(
-            templ_mean, templ_norm, inv_area, area))
+        return _scores(ccorr_c, s1c, s2c, consts)
+
+
+def ncc_score_stack(canvases: torch.Tensor, templs: torch.Tensor,
+                    consts: torch.Tensor, result_equal1: bool,
+                    method: str = "auto") -> torch.Tensor:
+    """ncc_score_map of each of G templates of one size, templs [G, h, w],
+    against the same canvases [B, H, W] -> [B, G, Ho, Wo] f32; consts
+    [G, 6] f32 on the canvases' device, row g template g's
+    score_constants (_score_map)."""
+    with span("fipm.ncc"):
+        return _score_map(canvases, templs, consts, result_equal1, method)
 
 
 def score_constants(templ_mean: float, templ_norm: float, inv_area: float,
@@ -282,6 +325,50 @@ def descent_best_ref(rois, templ, templ_mean, templ_norm, inv_area,
                          result_equal1, method="shiftmm")
     with span("fipm.descent.best"):
         return roi_best(smap, cc, k_ang)
+
+
+def descent_best_stack_ref(rois, templs, templ_index, consts,
+                           result_equal1, cc: int, k_ang: int):
+    """descent_best_ref for ROIs of a stack of templates of one size:
+    ROI b against templs[templ_index[b]] [G, h, w] with that template's
+    row of consts [G, 6] (score_constants; the k_ang ROIs of a candidate
+    share its template). Each template's ROIs are scored as
+    descent_best_ref scores them and scattered back, so the outputs equal
+    descent_best_ref's of each ROI with its own template bit for bit.
+    Reads the index and the table back (host syncs): the plain version,
+    and the route of the CPU."""
+    H, W = rois.shape[-2:]
+    per_cand = templ_index.reshape(cc, k_ang)[:, 0]
+    table = consts.tolist()
+    out = None
+    for g in torch.unique(per_cand).tolist():
+        sel = torch.nonzero(per_cand == g)[:, 0]
+        part = rois.reshape(cc, k_ang, H, W)[sel].reshape(-1, H, W)
+        with span("fipm.ncc"):
+            smap = _score_map(part, templs[g], tuple(table[g]),
+                              result_equal1, "shiftmm")
+        with span("fipm.descent.best"):
+            got = roi_best(smap, sel.shape[0], k_ang)
+        if out is None:
+            out = tuple(x.new_zeros((cc,) + x.shape[1:]) for x in got)
+        for o, x in zip(out, got):
+            o[sel] = x
+    return out
+
+
+def descent_best_stack(rois, templs, templ_index, consts, result_equal1,
+                       cc: int, k_ang: int, integer: bool):
+    """descent_best for a stack of templates (descent_best_stack_ref's
+    arguments): on the card, where the caller vouches for integers in
+    [0, 255] and the templates are not flat, one launch of the
+    descent-score kernel with the template index; everywhere else the
+    plain version."""
+    if integer and not result_equal1 and rois.is_cuda:
+        with span("fipm.descent.score"):
+            return descent_score_kernel.descent_score_cuda(
+                rois, templs, consts, cc, k_ang, templ_index)
+    return descent_best_stack_ref(rois, templs, templ_index, consts,
+                                  result_equal1, cc, k_ang)
 
 
 def descent_best(rois, templ, templ_mean, templ_norm, inv_area,

@@ -267,6 +267,48 @@ def test_kernel_model_special_maps(case):
         assert (v == 0.0).all() and (xy == 0).all()
 
 
+def _model_stack(rois, templs, index, table):
+    """The stack kernel's arithmetic: ROI b staged against template
+    index[b] with row index[b] of the constants table, each ROI as the
+    single-template model computes it."""
+    return [_model(rois[b:b + 1], templs[g], tuple(table[g]))[0]
+            for b, g in enumerate(index)]
+
+
+@pytest.mark.parametrize("hw,G,index", [
+    ((26, 17), 3, [2, 0, 1, 1, 2, 0, 2]),   # ocr's level 1, w % 4 == 1
+    ((52, 34), 4, [3, 3, 0, 2, 1]),         # ocr's level 0, two bands
+])
+def test_kernel_model_with_index_equals_per_template(hw, G, index):
+    """The kernel's model with a template index equals the model of each
+    template on its own ROIs, and both equal the plain stacked version
+    (ops/ncc.py::descent_best_stack_ref) and the plain version of each
+    template, bit for bit."""
+    templs = np.stack([_template(*hw, 90 + g) for g in range(G)])
+    stats = [_stats(t) for t in templs]
+    area = float(hw[0] * hw[1])
+    table = np.array([ncc.score_constants(*st, area) for st in stats],
+                     np.float32)
+    rois = np.concatenate([_rois(templs[g], 1, 100 + b)
+                           for b, g in enumerate(index)])
+    got = _model_stack(rois, templs, index, table)
+    plain = ncc.descent_best_stack_ref(
+        torch.as_tensor(rois), torch.as_tensor(templs),
+        torch.tensor(index, dtype=torch.int32), torch.as_tensor(table),
+        False, len(index), 1)
+    for g in range(G):
+        sel = [b for b, i in enumerate(index) if i == g]
+        own = _model(rois[sel], templs[g], tuple(table[g]))
+        want = _ref(rois[sel], templs[g], stats[g], len(sel), 1)
+        for j, b in enumerate(sel):
+            for x, y in zip(got[b], own[j]):
+                assert np.array_equal(np.asarray(x), np.asarray(y)), b
+            assert np.float32(got[b][0]).view(np.int32) == \
+                want[0][j, 0].numpy().view(np.int32)
+            for w_part, p_part in zip(want, plain):
+                assert torch.equal(p_part[b], w_part[j]), b
+
+
 # ----------------------------------------------------------------- CPU side
 
 def test_descent_score_module_imports_without_nvcc():
@@ -319,6 +361,33 @@ def test_descent_score_wrapper_rejects(rois, templ, cc, err, match):
     consts = ncc.score_constants(100.0, 50.0, 1 / 30, 30.0)
     with pytest.raises(err, match=match):
         dsk.descent_score_cuda(rois, templ, consts, cc, 1)
+
+
+TS = torch.zeros((4, 5, 6))
+TABLE = torch.zeros((4, 6))
+INDEX = torch.zeros(3, dtype=torch.int32)
+
+
+@pytest.mark.parametrize("templ,index,table,match", [
+    (TS, INDEX.long(), TABLE, "templ_index must be"),
+    (TS, INDEX[:2], TABLE, "templ_index must be"),
+    (TS, torch.zeros((3, 1), dtype=torch.int32), TABLE,
+     "templ_index must be"),
+    (TS, INDEX.to("meta"), TABLE, "templ_index must be"),
+    (TS, INDEX, TABLE[:, :5], "consts must be"),
+    (TS, INDEX, TABLE[:3], "consts must be"),
+    (TS, INDEX, TABLE.double(), "consts must be"),
+    (TS, INDEX, (0.0,) * 6, "consts must be"),
+    (T, INDEX, TABLE, r"templ \[G, h, w\]"),
+    (TS, INDEX, TABLE, "CUDA device"),
+])
+def test_descent_score_wrapper_rejects_stacks(templ, index, table, match):
+    """A stacked launch's template index (int32, one a ROI, contiguous, on
+    the ROIs' device) and constants table (float32 [G, 6] on that device)
+    are checked without reading them back; a well-formed stack of CPU
+    tensors still raises for the device."""
+    with pytest.raises(ValueError, match=match):
+        dsk.descent_score_cuda(R, templ, table, 3, 1, index)
 
 
 def test_plan_rows_and_shared_memory():
@@ -523,3 +592,58 @@ def test_match_on_card_equals_cpu(cuda_device, monkeypatch, scene):
     assert np.abs(got["score"] - want["score"]).max() <= 1e-5
     assert np.abs(got["center"][v] - want["center"][v]).max() <= 1e-3
     assert np.abs(got["angle"][v] - want["angle"][v]).max() <= 1e-3
+
+
+# ocr's levels 1 and 0 (52x34 glyphs, top layer 2) and their chunks at
+# k_ang 1: 64 and 32 candidates.
+OCR_LEVELS = (((26, 17), 64), ((52, 34), 32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("level", [0, 1])
+def test_stacked_launch_equals_a_launch_a_template_on_card(cuda_device,
+                                                          level):
+    """36 templates at ocr's level-1 and level-0 sizes, a chunk of ROIs
+    each against a template drawn from the 36: one stacked launch equals
+    one single-template launch per template on that template's ROIs, and
+    the plain stacked version, bit for bit."""
+    (h, w), cc = OCR_LEVELS[level]
+    G = 36
+    templs = np.stack([_template(h, w, 200 + g) for g in range(G)])
+    index = np.random.default_rng(300 + level).integers(0, G, cc)
+    rois = np.concatenate([_rois(templs[g], 1, 400 + b)
+                           for b, g in enumerate(index)])
+    area = float(h * w)
+    consts = [ncc.score_constants(*_stats(t), area) for t in templs]
+    dev = cuda_device
+    r = torch.as_tensor(rois, device=dev)
+    t = torch.as_tensor(templs, device=dev)
+    table = torch.tensor(consts, dtype=torch.float32, device=dev)
+    tidx = torch.as_tensor(index, dtype=torch.int32, device=dev)
+    before = profiling.counter("descent_score.launches")
+    got = ncc.descent_best_stack(r, t, tidx, table, False, cc, 1, True)
+    torch.cuda.synchronize()
+    assert profiling.counter("descent_score.launches") == before + 1
+    _same(got, ncc.descent_best_stack_ref(r, t, tidx, table, False, cc, 1))
+    for g in np.unique(index):
+        sel = torch.as_tensor(np.nonzero(index == g)[0], device=dev)
+        one = dsk.descent_score_cuda(r[sel].contiguous(), t[g].contiguous(),
+                                     consts[g], sel.numel(), 1)
+        _same(tuple(x[sel] for x in got), one)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["flagship_L0", "washers"])
+def test_null_index_launch_unchanged_on_card(cuda_device, case):
+    """The launch without a template index (one template, its constants
+    by value: every single-pattern match) at the flagship's level-0 chunk
+    (8 candidates x 3 angles of 527x768) and Test7's chunk (32 of 60x60):
+    one launch, bit-equal to the plain version."""
+    if case == "flagship_L0":
+        hw, cc, k_ang = FLAGSHIP_LEVELS[0], FLAGSHIP_CHUNKS[0], 3
+    else:
+        hw, cc, k_ang = WASHER, 32, 1
+    templ = _template(*hw, 500)
+    _hold(_rois(templ, cc * k_ang, 501), templ, _stats(templ), cc, k_ang,
+          cuda_device)
+

@@ -526,9 +526,10 @@ def test_ocr_spans_nest_count_and_leave_results(ocr_problem):
     n = len(m.patterns)
     assert names.count("fipm.match_patterns") == 1
     assert names.count("fipm.ocr.cross_nms") == 1
-    # Each pattern's candidates, then its finalize.
-    assert names.count("fipm.patterns.pattern") == 2 * n
+    # The group's stacked candidates, then its finalize.
+    assert names.count("fipm.patterns.pattern") == 2
     assert program.counts(rows, "patterns.run") == n
+    assert program.counts(rows, "patterns.stacked") == n
     assert program.counts(rows, "patterns.groups") == 1
     matches = program.counts(rows, "ocr.matches")
     kept = program.counts(rows, "ocr.kept")
