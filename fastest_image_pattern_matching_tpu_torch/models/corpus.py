@@ -45,39 +45,43 @@ def inspect_corpus(
     on the mesh's device when a mesh is given (every rank of the mesh
     iterates the same frames and gets every report), through
     models/batch.py on `device` when not. An odd-shaped straggler forms
-    its own (smaller) batch. execution_ms is the batch's wall time divided
-    by its frames.
+    its own (smaller) batch. A batch is matched as soon as it is full,
+    and its reports are yielded before the next frame is pulled.
+    execution_ms is the batch's wall time divided by its frames.
     """
     cfg = cfg or MatchConfig()
     dev = None if mesh is not None else resolve_device(device)
     buf: List[np.ndarray] = []
     idx: List[int] = []
 
-    def flush():
-        nonlocal buf, idx
-        if not buf:
-            return
-        t0 = time.perf_counter()
-        if mesh is not None:
-            out = match_batch_sharded(np.stack(buf), pattern, cfg, mesh)
-        else:
-            out = match_many_arrays(
-                np.stack(buf), pattern, cfg,
-                batch_bucket=min(batch_size, _next_bucket(len(buf))),
-                device=dev)
-        ms = (time.perf_counter() - t0) * 1000 / len(buf)
-        for k, i in enumerate(idx):
-            with span("fipm.results"):
-                results = _results_from_arrays(out, k, pattern)
-            yield FrameReport(i, results, ms)
-        buf, idx = [], []
+    def flush() -> List[FrameReport]:
+        with span("fipm.corpus.batch"):
+            t0 = time.perf_counter()
+            if mesh is not None:
+                out = match_batch_sharded(np.stack(buf), pattern, cfg, mesh)
+            else:
+                out = match_many_arrays(
+                    np.stack(buf), pattern, cfg,
+                    batch_bucket=min(batch_size, _next_bucket(len(buf))),
+                    device=dev)
+            ms = (time.perf_counter() - t0) * 1000 / len(buf)
+            reports = []
+            for k, i in enumerate(idx):
+                with span("fipm.results"):
+                    reports.append(FrameReport(
+                        i, _results_from_arrays(out, k, pattern), ms))
+        buf.clear()
+        idx.clear()
+        return reports
 
-    cur_shape = None
     for i, frame in enumerate(frames):
-        if cur_shape is not None and (frame.shape != cur_shape
-                                      or len(buf) >= batch_size):
+        if buf and frame.shape != buf[0].shape:
             yield from flush()
-        cur_shape = frame.shape
         buf.append(frame)
         idx.append(i)
-    yield from flush()
+        # A full batch is matched now, not when the next frame arrives:
+        # on a live camera that would hold its reports a frame period.
+        if len(buf) >= batch_size:
+            yield from flush()
+    if buf:
+        yield from flush()

@@ -52,10 +52,18 @@ def ensure_gray(img, channel_axis_only: bool = False):
                          "frames with utils.imageio.ensure_gray first")
     img = img[..., :3]
     if isinstance(img, np.ndarray):
-        b = np.round(img[..., 0]).astype(np.int64)
-        g = np.round(img[..., 1]).astype(np.int64)
-        r = np.round(img[..., 2]).astype(np.int64)
-        v = (b * 3735 + g * 19235 + r * 9798 + 16384) >> 15
+        # In place in int32 (the weights sum to 2**15, so u8 values cannot
+        # overflow), five passes a frame: a camera's frames are converted
+        # on its grabber thread, which shares the host with the matcher.
+        src = img if img.dtype == np.uint8 else np.round(img)
+        v = src[..., 0].astype(np.int32)
+        v *= 3735
+        for c, w in ((1, 19235), (2, 9798)):
+            t = src[..., c].astype(np.int32)
+            t *= w
+            v += t
+        v += 16384
+        v >>= 15
         return v.astype(np.uint8 if img.dtype == np.uint8 else img.dtype)
     ii = torch.round(img.to(torch.float32)).to(torch.int64)
     v = (ii[..., 0] * 3735 + ii[..., 1] * 19235 + ii[..., 2] * 9798

@@ -40,10 +40,12 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 
 from fipm_bench import run, trace  # noqa: E402
 
-ENTRIES = ("fipm.match", "fipm.match_many", "fipm.orb", "fipm.ocr")
+ENTRIES = ("fipm.match", "fipm.match_many", "fipm.orb", "fipm.ocr",
+           "fipm.corpus.batch")
 # Spans that hold stages without being one: a glyph read's pattern loop
-# and each pattern's stages.
-WRAPPERS = ("fipm.match_patterns", "fipm.patterns.pattern")
+# and each pattern's stages; a batch's match inside inspect_corpus.
+WRAPPERS = ("fipm.match_patterns", "fipm.patterns.pattern",
+            "fipm.match_many")
 
 
 def stage_of(rows, i):
